@@ -15,6 +15,7 @@ from typing import List, Optional
 from .models.field import FieldConfig
 from .models.gaussians import ModelConfig
 from .ops.rasterize import RasterConfig
+from .train.losses import LossWeights
 
 
 @dataclasses.dataclass
@@ -146,6 +147,16 @@ class Config:
             min_interval=self.min_interval,
             scale_reg=self.scale_reg, shs_reg=self.shs_reg,
             motion_reg=self.motion_reg, field=self.field_config())
+
+    def loss_weights(self) -> LossWeights:
+        return LossWeights(
+            lambda_dssim=self.lambda_dssim,
+            lambda_dtstd=self.lambda_dtstd,
+            lambda_dscale_reg=self.lambda_dscale_reg,
+            lambda_dshs_reg=self.lambda_dshs_reg,
+            lambda_dmotion_reg=self.lambda_dmotion_reg,
+            lambda_dplanetv=self.lambda_dplanetv,
+            lambda_dtime_smooth=self.lambda_dtime_smooth)
 
     def raster_config(self) -> RasterConfig:
         # the same tiling the JAX package picks for this config, so the two

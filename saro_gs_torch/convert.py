@@ -1,4 +1,4 @@
-"""JAX-package parameters (as numpy) -> the port's model state.
+"""JAX-package parameters and train state (as numpy) <-> the port's.
 
 The JAX package flattens its ``NetParams`` in treedef order, which is also
 the order of the ``leaf_<i>`` arrays of a checkpoint's npz:
@@ -12,17 +12,30 @@ the order of the ``leaf_<i>`` arrays of a checkpoint's npz:
 The mapping below is spelled out and every shape is checked, so a change
 of layout on either side fails loudly instead of loading scrambled
 weights.  JAX weights are [in, out]; ``nn.Linear`` keeps [out, in].
+
+A whole train state travels as a plain dict of numpy arrays
+(``train_state_from_numpy`` / ``train_state_to_numpy``):
+
+  points, mu_points, nu_points   {GaussianParams field: array}
+  net_leaves, mu_net_leaves, nu_net_leaves   lists in the leaf order above
+  count, step, dropped_hwm, bad_steps        integers
+  alive [C], inv_integral [C,1], inv_integral_densify [C,1]
+  aux   {xyz_grad_accum [C,1], denom [C,1], max_radii2d [C]}
+  fstatic   {aabb_min, aabb_max, duration}   (from_numpy only)
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple
+from typing import List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import DEFAULT_DEVICE, resolve_device
+from .models import densify as dens
 from .models import field as field_mod
 from .models import gaussians as gm
+from .train import optim
+from .train.step import TrainState
 
 _PARAM_KEYS = {"xyz": "xyz", "features_dc": "f_dc",
                "features_rest": "f_rest", "scaling": "scaling",
@@ -30,14 +43,22 @@ _PARAM_KEYS = {"xyz": "xyz", "features_dc": "f_dc",
                "temporal_pos": "temporal_pos"}
 
 
-def net_leaf_names(nets: gm.DeformNets) -> list:
-    """Parameter names of ``nets``, one per npz leaf, in leaf order."""
-    names = [f"field.planes.{i}" for i in range(len(nets.field.planes))]
-    for head in gm.HEADS:
-        n_layers = len(getattr(nets, head).layers)
-        names += [f"{head}.layers.{i}.bias" for i in range(n_layers)]
-        names += [f"{head}.layers.{i}.weight" for i in range(n_layers)]
-    return names
+def _net_leaves_to_torch(nets: gm.DeformNets, leaves_np, dev) -> List:
+    """numpy leaves in JAX layout -> tensors shaped like nets.leaves()."""
+    names = nets.leaf_names()
+    if len(leaves_np) != len(names):
+        raise ValueError(f"{len(leaves_np)} net leaves, expected "
+                         f"{len(names)}")
+    out = []
+    for name, ref, leaf in zip(names, nets.leaves(), leaves_np):
+        arr = np.asarray(leaf, np.float32)
+        if name.endswith(".weight"):
+            arr = arr.T
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"leaf for {name}: shape {arr.shape}, "
+                             f"expected {tuple(ref.shape)}")
+        out.append(torch.tensor(arr, device=dev))
+    return out
 
 
 def jax_to_torch(params_np: Mapping[str, np.ndarray],
@@ -64,25 +85,72 @@ def jax_to_torch(params_np: Mapping[str, np.ndarray],
                          else params_np[short])
     params = gm.GaussianParams(**fields)
 
-    nets = gm.DeformNets(cfg)
-    names = net_leaf_names(nets)
-    if len(nets_np_leaves) != len(names):
-        raise ValueError(f"{len(nets_np_leaves)} net leaves, expected "
-                         f"{len(names)} for {cfg}")
-    state = {}
-    for name, leaf in zip(names, nets_np_leaves):
-        arr = np.asarray(leaf, np.float32)
-        if name.endswith(".weight"):
-            arr = arr.T
-        want = tuple(nets.get_parameter(name).shape)
-        if arr.shape != want:
-            raise ValueError(f"leaf for {name}: shape {arr.shape}, "
-                             f"expected {want}")
-        state[name] = torch.tensor(arr)
-    nets.load_state_dict(state, strict=True)
-    nets.to(dev)
+    nets = gm.DeformNets(cfg).to(dev)
+    with torch.no_grad():
+        for p, leaf in zip(nets.leaves(),
+                           _net_leaves_to_torch(nets, nets_np_leaves, dev)):
+            p.copy_(leaf)
 
     fstatic = field_mod.FieldStatic(aabb_min=t(fstatic_np["aabb_min"]),
                                     aabb_max=t(fstatic_np["aabb_max"]),
                                     duration=t(fstatic_np["duration"]))
     return params, nets, fstatic
+
+
+def train_state_from_numpy(d: Mapping, cfg: gm.ModelConfig,
+                           device=DEFAULT_DEVICE):
+    """The dict of the module docstring -> (TrainState, fstatic) on
+    ``device``."""
+    dev = resolve_device(device)
+
+    def t(x, dtype=np.float32):
+        return torch.as_tensor(np.array(x, dtype), device=dev)
+
+    points, nets, fstatic = jax_to_torch(d["points"], d["net_leaves"],
+                                         d["fstatic"], cfg, device=dev)
+    fields = gm.GaussianParams._fields
+    mu = [t(d["mu_points"][k]) for k in fields] \
+        + _net_leaves_to_torch(nets, d["mu_net_leaves"], dev)
+    nu = [t(d["nu_points"][k]) for k in fields] \
+        + _net_leaves_to_torch(nets, d["nu_net_leaves"], dev)
+    state = TrainState(
+        points=points, nets=nets,
+        opt=optim.AdamState(mu=mu, nu=nu, count=int(d["count"])),
+        alive=t(d["alive"]),
+        aux=dens.DensifyAux(**{k: t(d["aux"][k])
+                               for k in dens.DensifyAux._fields}),
+        inv_integral=t(d["inv_integral"]),
+        inv_integral_densify=t(d["inv_integral_densify"]),
+        step=int(d["step"]), dropped_hwm=int(d.get("dropped_hwm", 0)),
+        bad_steps=int(d.get("bad_steps", 0)))
+    return state, fstatic
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The port's TrainState -> the dict of the module docstring (weights
+    back in the JAX [in, out] layout), for comparison with the JAX
+    package's."""
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    names = state.nets.leaf_names()
+
+    def net_np(leaves):
+        return [n(x).T if name.endswith(".weight") else n(x)
+                for name, x in zip(names, leaves)]
+
+    fields = gm.GaussianParams._fields
+    k = len(fields)
+    return {
+        "points": {f: n(x) for f, x in zip(fields, state.points)},
+        "net_leaves": net_np(state.nets.leaves()),
+        "mu_points": {f: n(x) for f, x in zip(fields, state.opt.mu[:k])},
+        "mu_net_leaves": net_np(state.opt.mu[k:]),
+        "nu_points": {f: n(x) for f, x in zip(fields, state.opt.nu[:k])},
+        "nu_net_leaves": net_np(state.opt.nu[k:]),
+        "count": state.opt.count, "step": state.step,
+        "dropped_hwm": state.dropped_hwm, "bad_steps": state.bad_steps,
+        "alive": n(state.alive),
+        "aux": {f: n(x) for f, x in zip(dens.DensifyAux._fields, state.aux)},
+        "inv_integral": n(state.inv_integral),
+        "inv_integral_densify": n(state.inv_integral_densify)}

@@ -35,11 +35,16 @@
 //  * colour = C + T * bg; n_contrib = 1-based rank of the last contributor.
 // Pixel coordinates are the integer pixel indices (no +0.5).
 
+// The staging of a batch and the per-instance alpha evaluation live in
+// alpha_chain.cuh, shared with the backward replay (backward.cu).
+
 #include <cuda_runtime.h>
+
+#include "alpha_chain.cuh"
 
 namespace {
 
-constexpr int kRows = 10;  // x, y, conic a/b/c, opacity, r, g, b, depth
+using saro::kRows;
 
 __global__ void __launch_bounds__(1024)
 forward_kernel(const int* __restrict__ tile_start,
@@ -50,9 +55,6 @@ forward_kernel(const int* __restrict__ tile_start,
                float* __restrict__ depth_out, float* __restrict__ final_t,
                int* __restrict__ n_contrib) {
   extern __shared__ float sh[];   // [kRows][chunk]
-  const float alpha_max = (float)0.99;
-  const float alpha_min = (float)(1.0 / 255.0);
-  const float t_eps = (float)1e-4;
 
   const int t = blockIdx.x;
   const int lx = threadIdx.x % tile_x;
@@ -75,34 +77,20 @@ forward_kernel(const int* __restrict__ tile_start,
     // the whole block leaves once no pixel is still walking
     if (__syncthreads_count(done) == (int)blockDim.x) break;
     const int nb = min(chunk, count - b0);
-    // masking by select, never by multiply: shared slots past the range
-    // (a partial last batch) are filled with 0 and never read; reading
-    // them would be garbage, and 0 * NaN is NaN
-    for (int i = threadIdx.x; i < kRows * chunk; i += blockDim.x) {
-      const int r = i / chunk;
-      const int j = i - r * chunk;
-      sh[i] = j < nb ? attr[(size_t)r * L + start + b0 + j] : 0.0f;
-    }
+    saro::stage_batch(sh, attr, L, start + b0, nb, chunk);
     __syncthreads();
     if (!done) {
       for (int j = 0; j < nb; ++j) {
-        const float dx = sh[0 * chunk + j] - pxf;
-        const float dy = sh[1 * chunk + j] - pyf;
-        const float ca = sh[2 * chunk + j];
-        const float cb = sh[3 * chunk + j];
-        const float cc = sh[4 * chunk + j];
-        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-        const float g = expf(fminf(power, 0.0f));
-        const float alpha = fminf(sh[5 * chunk + j] * g, alpha_max);
         // broken-conic guard (power > 0 skips) and the 1/255 cutoff; a NaN
         // fails both comparisons and is skipped too
-        if (!(power <= 0.0f && alpha >= alpha_min)) continue;
-        const float test_t = T * (1.0f - alpha);
-        if (test_t < t_eps) {   // termination latch: no contribution
+        saro::Splat s;
+        if (!saro::eval_alpha(sh, chunk, j, pxf, pyf, s)) continue;
+        const float test_t = T * (1.0f - s.alpha);
+        if (test_t < saro::kTEps) {   // termination latch: no contribution
           done = true;
           break;
         }
-        const float w = alpha * T;
+        const float w = s.alpha * T;
         C0 = C0 + w * sh[6 * chunk + j];
         C1 = C1 + w * sh[7 * chunk + j];
         C2 = C2 + w * sh[8 * chunk + j];

@@ -22,6 +22,10 @@ from ..ops import mip
 COMBS: Tuple[Tuple[int, int], ...] = tuple(
     itertools.combinations(range(4), 2))
 SPATIAL_MAX_MIP = 7      # hexplane.py:55 (planes without time)
+TV_PLANES = (0, 1, 3)    # hexplane.py:311-318
+# the reference's index set, kept as it is: [1, 4, 5] takes the (x,z)
+# spatial plane where (x,t) was meant (hexplane.py:320-326)
+TIMESMOOTH_PLANES = (1, 4, 5)
 
 
 class FieldConfig(NamedTuple):
@@ -98,3 +102,40 @@ class HexPlaneField(nn.Module):
                 acc = feat if acc is None else acc + feat
             outs.append(acc)
         return torch.cat(outs, dim=-1)
+
+
+def _scales(planes):
+    """The flat plane list as one group of len(COMBS) planes per multires
+    scale."""
+    k = len(COMBS)
+    return [planes[i:i + k] for i in range(0, len(planes), k)]
+
+
+def plane_tv(planes) -> torch.Tensor:
+    """Total variation over the spatial planes (hexplane.py:147-153,
+    311-318); ``planes`` is ``HexPlaneField.planes``."""
+    total = 0.0
+    for group in _scales(planes):
+        for idx in TV_PLANES:
+            t = group[idx]                       # [C, H, W]
+            c, h, w = t.shape
+            count_h = c * (h - 1) * w
+            count_w = c * h * (w - 1)
+            h_tv = torch.square(t[:, 1:, :] - t[:, :h - 1, :]).sum()
+            w_tv = torch.square(t[:, :, 1:] - t[:, :, :w - 1]).sum()
+            total = total + 2 * (h_tv / count_h + w_tv / count_w)
+    return total
+
+
+def time_smoothness(planes) -> torch.Tensor:
+    """Second-difference smoothness along rows (hexplane.py:139-145,
+    320-326), over the reference's plane index set as it is."""
+    total = 0.0
+    for group in _scales(planes):
+        for idx in TIMESMOOTH_PLANES:
+            t = group[idx]
+            h = t.shape[1]
+            first = t[:, 1:, :] - t[:, :h - 1, :]
+            second = first[:, 1:, :] - first[:, :h - 2, :]
+            total = total + torch.square(second).mean()
+    return total

@@ -4,10 +4,13 @@
 Per-point parameters are a ``GaussianParams`` tuple of tensors; the field
 and the four MLP heads are one ``DeformNets`` module.  ``deform`` is the
 temporal model: residual-field features, lifespan and survival state, the
-heads' motion/rotation/scale/SH residuals (saro_gaussian.py:779-847).
+heads' motion/rotation/scale/SH residuals (saro_gaussian.py:779-847);
+``temporal_integral`` is the closed-form opacity integral that prunes and
+scales learning rates.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -71,6 +74,20 @@ class DeformNets(nn.Module):
                                final_activation=torch.sigmoid)
         self.shs_mlp = MLP([te + fd, h, h, 48])
 
+    def leaf_names(self) -> list:
+        """Parameter names in the JAX package's NetParams leaf order: the
+        planes, then each head's biases before its weights."""
+        names = [f"field.planes.{i}" for i in range(len(self.field.planes))]
+        for head in HEADS:
+            n_layers = len(getattr(self, head).layers)
+            names += [f"{head}.layers.{i}.bias" for i in range(n_layers)]
+            names += [f"{head}.layers.{i}.weight" for i in range(n_layers)]
+        return names
+
+    def leaves(self) -> list:
+        """The parameters in ``leaf_names`` order."""
+        return [self.get_parameter(n) for n in self.leaf_names()]
+
 
 def time_embed(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """NeRF positional encoding of the time distance
@@ -132,6 +149,12 @@ class DeformOut(NamedTuple):
     shs: torch.Tensor          # [N, 16, 3]
     lifespan: torch.Tensor     # [N, 1]
     state: torch.Tensor        # [N, 1] survival
+    # the heads at zero time distance, for the regularizers (None unless
+    # the config's scale_reg / shs_reg / motion_reg asks)
+    scale_residual: Optional[torch.Tensor] = None    # [N, 3]
+    shs_residual: Optional[torch.Tensor] = None      # [N, 16, 3]
+    motion_residual: Optional[torch.Tensor] = None   # [N, 3]
+    real_xyz: Optional[torch.Tensor] = None  # base-time position, no grad
 
 
 def field_feat(params: GaussianParams, nets: DeformNets, cfg: ModelConfig,
@@ -145,8 +168,12 @@ def field_feat(params: GaussianParams, nets: DeformNets, cfg: ModelConfig,
 
 def deform(params: GaussianParams, nets: DeformNets, cfg: ModelConfig,
            fstatic: field_mod.FieldStatic, timestamp,
-           feat: Optional[torch.Tensor] = None) -> DeformOut:
-    """Temporal deformation at ``timestamp`` (saro_gaussian.py:779-847)."""
+           feat: Optional[torch.Tensor] = None,
+           with_residuals: bool = False) -> DeformOut:
+    """Temporal deformation at ``timestamp`` (saro_gaussian.py:779-847).
+    ``with_residuals`` also runs the heads at zero time distance, for the
+    training regularizers and ``real_xyz``; the eval render skips that
+    pass."""
     if feat is None:
         feat = field_feat(params, nets, cfg, fstatic)
     lifespan = compute_lifespan(nets, cfg, feat, fstatic.duration)
@@ -156,6 +183,20 @@ def deform(params: GaussianParams, nets: DeformNets, cfg: ModelConfig,
 
     emb = time_embed(cfg, distance).detach()        # PE detached (:792)
     df = torch.cat([feat, emb], dim=-1)
+
+    scale_residual = shs_residual = motion_residual = real_xyz = None
+    if with_residuals:
+        # the heads at zero time distance (saro_gaussian.py:797-812)
+        base_emb = time_embed(cfg, torch.zeros_like(distance))
+        base_df = torch.cat([feat, base_emb], dim=-1)
+        m_base = nets.motion_mlp(base_df)
+        if cfg.scale_reg:
+            scale_residual = nets.rot_mlp(base_df)[:, 4:]
+        if cfg.shs_reg:
+            shs_residual = nets.shs_mlp(base_df).reshape(-1, 16, 3)
+        if cfg.motion_reg:
+            motion_residual = m_base
+        real_xyz = (params.xyz + m_base).detach()
 
     if cfg.dx:
         xyz = params.xyz + nets.motion_mlp(df)
@@ -184,4 +225,36 @@ def deform(params: GaussianParams, nets: DeformNets, cfg: ModelConfig,
         shs = shs + nets.shs_mlp(df).reshape(-1, 16, 3)
 
     return DeformOut(xyz=xyz, rotation=rot, scaling=scaling, opacity=opacity,
-                     shs=shs, lifespan=lifespan, state=state)
+                     shs=shs, lifespan=lifespan, state=state,
+                     scale_residual=scale_residual,
+                     shs_residual=shs_residual,
+                     motion_residual=motion_residual, real_xyz=real_xyz)
+
+
+def temporal_integral(params: GaussianParams, nets: DeformNets,
+                      cfg: ModelConfig, fstatic: field_mod.FieldStatic,
+                      start: float = 0.0, end: float = 1.0,
+                      feat: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Closed-form temporal opacity integral [N, 1], Eq. 22
+    (saro_gaussian.py:761-777).  Carries no gradient."""
+    with torch.no_grad():
+        if feat is None:
+            feat = field_feat(params, nets, cfg, fstatic)
+        lifespan = compute_lifespan(nets, cfg, feat, fstatic.duration)
+        t_pos = get_temporal_pos(params, cfg)
+
+        def q(x):
+            a1, a2 = 0.070565902, 1.5976
+            return 1.0 - 1.0 / (1.0 + torch.exp(a1 * x ** 3 + a2 * x))
+
+        c = 2.0 * math.sqrt(2.0)
+        p1 = q(c * (end - t_pos) / lifespan)
+        p2 = q(c * (start - t_pos) / lifespan)
+        integral = lifespan * (math.sqrt(math.pi) / 2.0) * (p1 - p2)
+        if cfg.integral_renorm:
+            # Q(+inf) - Q(-inf) = 1, so p1 - p2 is the mass fraction inside
+            # [start, end]; dividing by it (at most a 4x boost, so a point
+            # wholly outside stays prunable) gives an edge-centred splat
+            # the integral of its unclipped mass
+            integral = integral / torch.clamp(p1 - p2, 0.25, 1.0)
+        return integral

@@ -1,5 +1,6 @@
 """Tile binning into a staged instance table (counterpart of
-ops/binning.py:bin_gaussians_staged, forward).
+ops/binning.py:bin_gaussians_staged), and the per-Gaussian reduce of the
+backward's per-instance rows.
 
   1. expand each kept Gaussian into one instance per tile of its rect
      (kernel K2, ``tile_kernels.expand_instances``), with the corner cull;
@@ -29,6 +30,10 @@ class StagedBins(NamedTuple):
     tile_count: torch.Tensor  # [NT] int32
     num_instances: int        # instances emitted (valid or corner-culled)
     num_dropped: int          # instances beyond max_instances
+    # the sort's permutation (sorted slot -> emission slot) and each
+    # Gaussian's tiles_touched: what reduce_instances needs
+    perm: torch.Tensor        # [L] int64
+    tiles: torch.Tensor       # [N] int32
 
 
 def _finite(x: torch.Tensor) -> torch.Tensor:
@@ -69,16 +74,17 @@ def expand(pre: PreprocessOut, opacity: torch.Tensor, grid_x: int,
 
 def sort_instances(keys: torch.Tensor, gid: torch.Tensor,
                    attr: torch.Tensor, num_tiles: int):
-    """Steps 2-3: (attr, ids, tile_start, tile_count) in tile-major,
+    """Steps 2-3: (attr, ids, tile_start, tile_count, perm) in tile-major,
     depth-ascending order; invalid instances (sentinel tile num_tiles)
-    end up past every tile's range."""
+    end up past every tile's range.  ``perm`` maps a sorted slot to its
+    emission slot."""
     keys_sorted, perm = torch.sort(keys, stable=True)
     tile_sorted = keys_sorted >> 32
     tids = torch.arange(num_tiles, dtype=torch.int64, device=keys.device)
     start = torch.searchsorted(tile_sorted, tids, side="left")
     end = torch.searchsorted(tile_sorted, tids + 1, side="left")
     return (attr.index_select(1, perm), gid[perm], start.to(torch.int32),
-            (end - start).to(torch.int32))
+            (end - start).to(torch.int32), perm)
 
 
 def bin_gaussians_staged(pre: PreprocessOut, opacity: torch.Tensor,
@@ -89,8 +95,31 @@ def bin_gaussians_staged(pre: PreprocessOut, opacity: torch.Tensor,
     keys, gid, attr, n_inst, n_drop = expand(
         pre, opacity, grid_x, grid_y, max_instances, tile_x, tile_y,
         corner_cull)
-    attr, ids, start, count = sort_instances(keys, gid, attr,
-                                             grid_x * grid_y)
+    attr, ids, start, count, perm = sort_instances(keys, gid, attr,
+                                                   grid_x * grid_y)
     return StagedBins(attr=attr, ids=ids, tile_start=start,
                       tile_count=count, num_instances=n_inst,
-                      num_dropped=n_drop)
+                      num_dropped=n_drop, perm=perm,
+                      tiles=pre.tiles_touched.to(torch.int32))
+
+
+def reduce_instances(rows: torch.Tensor, perm: torch.Tensor,
+                     tiles: torch.Tensor) -> torch.Tensor:
+    """Per-instance rows [R, L] in sorted order -> per-Gaussian sums
+    [N, R] (the JAX package's segment_sum over ``ids``,
+    saro_gs_tpu/ops/rasterize.py:212-223).
+
+    The expander emits every Gaussian's instances as one contiguous run of
+    slots, in Gaussian order, so the rows are first put back in emission
+    order (``perm`` is a permutation: a plain indexed copy) and each run
+    is then summed sequentially by ``torch.segment_reduce``.  No atomics,
+    unlike ``index_add_`` on CUDA: two calls agree to the bit."""
+    n_inst = rows.shape[1]
+    emit = torch.empty((n_inst, rows.shape[0]), dtype=rows.dtype,
+                       device=rows.device)
+    emit[perm] = rows.T
+    tiles = tiles.long()
+    offsets = torch.cumsum(tiles, 0) - tiles
+    # the runs that fit in the table; the last one may be cut by capacity
+    cnt = torch.clamp(torch.minimum(tiles, n_inst - offsets), min=0)
+    return torch.segment_reduce(emit, "sum", lengths=cnt, unsafe=True)

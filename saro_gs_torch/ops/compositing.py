@@ -1,8 +1,9 @@
-"""Per-tile alpha compositing, plain PyTorch (counterpart of the forward
-half of ops/compositing.py).
+"""Per-tile alpha compositing and its backward, plain PyTorch (counterpart
+of ops/compositing.py).
 
-This is the plain version of kernel K1 (``csrc/forward.cu``): the CPU
-path, and what the kernel is held to on the card.  It walks each tile's
+These are the plain versions of kernel K1 (``csrc/forward.cu``) and of
+kernel K3 (``csrc/backward.cu``): the CPU path, and what the kernels are
+held to on the card.  The forward walks each tile's
 depth-sorted instance range of the staged table front to back, one
 instance per step, with every pixel of every tile in flight at once, and
 keeps the reference's per-pixel semantics (forward.cu:261-393):
@@ -18,6 +19,14 @@ keeps the reference's per-pixel semantics (forward.cu:261-393):
 
 Its arithmetic is written in the kernel's order, so on the card the two
 agree to the last bit where both round the same.
+
+``backward_tiles`` replays that walk front to back and gives the
+per-instance gradients [9, L] of the colour image (the depth output has no
+backward, as in the reference): the colour behind instance k comes from
+the forward's outputs, S_k = (color - T_final * bg) - sum_{i<=k} w_i c_i,
+so nothing is walked in reverse.  The kernel sums an instance's pixels in
+another order than ``sum`` here, so the two agree to rounding, not to the
+bit.
 """
 from __future__ import annotations
 
@@ -34,6 +43,10 @@ DEPTH_DEFAULT = 15.0      # forward.cu:308 (median-depth default)
 ROW_X, ROW_Y, ROW_CA, ROW_CB, ROW_CC, ROW_OP, ROW_R, ROW_G, ROW_B, \
     ROW_DEPTH = range(10)
 ROWS = 10
+# rows of the per-instance gradient table: d_rgb (3), d_mean2d (2, in NDC
+# units: pixel gradient * 0.5 * width, 0.5 * height), d_conic (3, the true
+# b-gradient, unlike the reference's halved one), d_opacity (1)
+GRAD_ROWS = 9
 
 
 class ForwardTilesOut(NamedTuple):
@@ -158,3 +171,117 @@ def forward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
         (height, width), dtype=torch.int32, device=attr.device)
     return ForwardTilesOut(color=img(color), depth=img(D), final_t=img(T),
                            n_contrib=n_contrib, n_walked=img(walked))
+
+
+def tile_image(img: torch.Tensor, tile_ids: torch.Tensor, width: int,
+               height: int, tile_x: int, tile_y: int) -> torch.Tensor:
+    """Image [(C,) H, W] -> per-tile pixels [T, (C,) P] of the given
+    tiles; pixels outside the image read 0."""
+    grid_x = (width + tile_x - 1) // tile_x
+    px, py = tile_pixel_coords(tile_ids, grid_x, tile_x, tile_y)
+    inside = (px < width) & (py < height)
+    idx = torch.clamp(py, max=height - 1) * width \
+        + torch.clamp(px, max=width - 1)
+    if img.dim() == 2:
+        v = img.reshape(-1)[idx]
+        return torch.where(inside, v, torch.zeros_like(v))
+    v = img.reshape(img.shape[0], -1)[:, idx].permute(1, 0, 2)   # [T,C,P]
+    return torch.where(inside[:, None], v, torch.zeros_like(v))
+
+
+def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
+                   tile_count: torch.Tensor, bg: torch.Tensor,
+                   n_contrib: torch.Tensor, out_color: torch.Tensor,
+                   final_t: torch.Tensor, d_color: torch.Tensor, width: int,
+                   height: int, tile_x: int, tile_y: int,
+                   count_pairs: bool = False):
+    """Per-instance gradients [GRAD_ROWS, L] of the compositor (plain
+    version of K3; saro_gs_tpu/ops/compositing.py:backward_tiles,
+    backward.cu:399-557), given the forward's ``out_color`` [3,H,W],
+    ``final_t`` and ``n_contrib`` [H,W] and the cotangent ``d_color``.
+
+    A tile is replayed up to its largest n_contrib; slots past that, and
+    invalid slots outside every range, stay zero.  As in the reference
+    the 0.99 alpha clamp is not gated.  ``width``/``height`` are the full
+    frame's (the NDC scaling of d_mean2d).
+
+    With ``count_pairs`` returns (grad, n_pairs): the number of
+    instance-pixel pairs that contributed, an int64 scalar tensor (the
+    pairs replayed at all number ``n_contrib.sum()``)."""
+    dev = attr.device
+    f32 = torch.float32
+    grid_x = (width + tile_x - 1) // tile_x
+    grid_y = (height + tile_y - 1) // tile_y
+    tids = torch.arange(grid_x * grid_y, device=dev)
+    nt = tids.shape[0]
+    p = tile_x * tile_y
+    px, py = tile_pixel_coords(tids, grid_x, tile_x, tile_y)
+    pxf, pyf = px.to(f32), py.to(f32)
+    bg = bg.to(f32)
+
+    def tiles(img):
+        return tile_image(img, tids, width, height, tile_x, tile_y)
+
+    # pixels outside the image have n_contrib 0 and replay nothing
+    nc = tiles(n_contrib)                                    # [T,P] int32
+    dpix = tiles(d_color.to(f32))                            # [T,3,P]
+    tf = tiles(final_t)
+    S = tiles(out_color) - tf[:, None] * bg[None, :, None]
+    bg_dot = dpix[:, 0] * bg[0] + dpix[:, 1] * bg[1] + dpix[:, 2] * bg[2]
+    start = tile_start.long()
+    limit = torch.minimum(tile_count.long(),
+                          nc.max(dim=1).values.long()) if nt else start
+    T = torch.ones((nt, p), dtype=f32, device=dev)
+    grad = torch.zeros((GRAD_ROWS, attr.shape[1]), dtype=f32, device=dev)
+    n_pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    half_w, half_h = 0.5 * width, 0.5 * height
+    max_limit = int(limit.max()) if nt else 0
+    block = 64
+    for b0 in range(0, max_limit, block):
+        act = torch.nonzero(limit > b0).squeeze(1)
+        aT, aS, anc = T[act], S[act], nc[act]
+        apx, apy, astart, alimit = pxf[act], pyf[act], start[act], limit[act]
+        adpix, atf, abg_dot = dpix[act], tf[act], bg_dot[act]
+        for s in range(b0, min(b0 + block, max_limit)):
+            slot_ok = s < alimit                                 # [T]
+            # rows past a tile's bound are gathered (clamped index) and
+            # masked by select, never multiplied away
+            row = attr[:, torch.where(slot_ok, astart + s, 0)]   # [ROWS, T]
+            x, y, ca, cb, cc, op, r, g, b, _ = (row[i][:, None]
+                                                for i in range(ROWS))
+            dx = x - apx
+            dy = y - apy
+            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+            gval = torch.exp(torch.clamp_max(power, 0.0))
+            alpha = torch.clamp_max(op * gval, ALPHA_MAX)
+            ok = (slot_ok[:, None] & (s < anc) & (power <= 0.0)
+                  & (alpha >= ALPHA_MIN))
+            test_t = aT * (1.0 - alpha)
+            kill = ok & (test_t < T_EPS)       # the forward's latch
+            anc = torch.where(kill, torch.zeros_like(anc), anc)
+            contrib = ok & ~kill
+            w = alpha * aT
+            rgb = torch.stack([r, g, b], dim=1)                  # [T,3,1]
+            aS = torch.where(contrib[:, None], aS - w[:, None] * rgb, aS)
+            inv = 1.0 / (1.0 - alpha)
+            e = (rgb * aT[:, None] - aS * inv[:, None]) * adpix
+            d_alpha = (e[:, 0] + e[:, 1] + e[:, 2]) - atf * inv * abg_dot
+            d_g = op * d_alpha         # the 0.99 clamp is not gated
+            gdx = gval * dx
+            gdy = gval * dy
+            vals = torch.stack([
+                w * adpix[:, 0], w * adpix[:, 1], w * adpix[:, 2],
+                d_g * (-gdx * ca - gdy * cb) * half_w,
+                d_g * (-gdy * cc - gdx * cb) * half_h,
+                d_g * (-0.5 * gdx * dx),
+                d_g * (-gdx * dy),
+                d_g * (-0.5 * gdy * dy),
+                gval * d_alpha], dim=1)                          # [T,9,P]
+            vals = torch.where(contrib[:, None], vals,
+                               torch.zeros_like(vals))
+            grad[:, (astart + s)[slot_ok]] = vals.sum(dim=2)[slot_ok].T
+            aT = torch.where(contrib, test_t, aT)
+            if count_pairs:
+                n_pairs += contrib.sum()
+        T[act], S[act], nc[act] = aT, aS, anc
+    return (grad, n_pairs) if count_pairs else grad

@@ -41,11 +41,10 @@ def sh_basis_cols(degree: int, x, y, z):
     return b
 
 
-def eval_sh_color_cols(degree: int, shs: torch.Tensor, px, py, pz, campos):
-    """SH [N, 16, 3] and position columns -> (rgb [N, 3], clamped [N, 3]).
-
-    rgb = max(sum_k basis_k * sh_k + 0.5, 0), summed in k order like the
-    JAX package; ``clamped`` marks the channels the clamp cut."""
+def sh_raw_cols(degree: int, shs: torch.Tensor, px, py, pz, campos):
+    """SH [N, 16, 3] and position columns -> the unclamped colour
+    sum_k basis_k * sh_k + 0.5 [N, 3], summed in k order like the JAX
+    package."""
     dx = px - campos[0]
     dy = py - campos[1]
     dz = pz - campos[2]
@@ -54,5 +53,12 @@ def eval_sh_color_cols(degree: int, shs: torch.Tensor, px, py, pz, campos):
     raw = basis[0][:, None] * shs[:, 0]
     for k in range(1, len(basis)):
         raw = raw + basis[k][:, None] * shs[:, k]
-    raw = raw + 0.5
+    return raw + 0.5
+
+
+def eval_sh_color_cols(degree: int, shs: torch.Tensor, px, py, pz, campos):
+    """SH [N, 16, 3] and position columns -> (rgb [N, 3], clamped [N, 3]):
+    rgb = max(raw, 0) of ``sh_raw_cols``; ``clamped`` marks the channels
+    the clamp cut."""
+    raw = sh_raw_cols(degree, shs, px, py, pz, campos)
     return torch.clamp_min(raw, 0.0), raw < 0

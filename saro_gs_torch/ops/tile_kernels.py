@@ -1,24 +1,30 @@
-"""Hand-written Hopper kernels of the render path and their wrappers
-(counterpart of ops/tile_kernels.py).
+"""Hand-written Hopper kernels of the rasterizer and their wrappers
+(counterpart of ops/tile_kernels.py), and the build of every kernel
+library of the package.
 
   * K2, the instance expander (``csrc/expand.cu``), replaces
     ``saro_gs_tpu/ops/tile_kernels.py:_expand_kernel``;
   * K1, the forward compositor (``csrc/forward.cu``), replaces
-    ``saro_gs_tpu/ops/tile_kernels.py:_fwd_kernel``.
+    ``saro_gs_tpu/ops/tile_kernels.py:_fwd_kernel``;
+  * K3, the backward compositor (``csrc/backward.cu``), replaces
+    ``saro_gs_tpu/ops/tile_kernels.py:_bwd_kernel``;
+  * K4, the field-gradient scatter (``csrc/grid_scatter.cu``), is built
+    here and wrapped in ``ops/grid_scatter.py``.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, under
 ``<repo>/build/saro_gs_torch/`` (git-ignored), and bound with ``ctypes``.
-The libraries are named by a hash of source and flags, so an edited
-source is rebuilt.  ``-fmad=false`` keeps every multiply and add rounded
-on its own, as PyTorch's eager kernels round them, so a kernel and its
-plain version compute the same bits; ``--use_fast_math`` is not used, so
-``expf`` is the accurate one.
+The libraries are named by a hash of source, shared headers and flags,
+so an edited source is rebuilt.  ``-fmad=false`` keeps every multiply and
+add rounded on its own, as PyTorch's eager kernels round them, so a
+kernel and its plain version compute the same bits; ``--use_fast_math`` is
+not used, so ``expf`` is the accurate one.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on the current stream, raises if
-the launch failed, and counts its launches in ``launches``.  A CPU tensor
-takes the plain version; a CUDA tensor takes the kernel or raises.
+outputs (``torch.empty``; zeroed where the kernel leaves slots unwritten),
+launches on the current stream, raises if the launch failed, and counts
+its launches in ``launches``.  A CPU tensor takes the plain version; a
+CUDA tensor takes the kernel or raises.
 """
 from __future__ import annotations
 
@@ -52,7 +58,16 @@ _KERNELS = {
     "forward": ("forward.cu", "saro_forward_tiles",
                 [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P, _P, _P, _P, _P, _P]),
+    "backward": ("backward.cu", "saro_backward_tiles",
+                 [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _P, _P, _P, _P, _P, _P, _P]),
+    "grid_scatter": ("grid_scatter.cu", "saro_scatter_taps",
+                     [_P, _P, _P, _P, _I, _I, _P, _P]),
 }
+# instances the backward stages per batch, whatever the forward's chunk:
+# its shared memory holds nine partial sums per warp for each of them
+# (38 KB at 32 warps)
+BACKWARD_CHUNK = 32
 
 # launches of each kernel since the last reset_launches()
 launches = {name: 0 for name in _KERNELS}
@@ -73,8 +88,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> str:
-    with open(os.path.join(_CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for name in [src, *headers]:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(src)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
@@ -296,3 +314,58 @@ def forward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     _launched("forward", err)
     return compositing.ForwardTilesOut(color=color, depth=depth,
                                        final_t=final_t, n_contrib=n_contrib)
+
+
+# ---------------------------------------------------------------------------
+# K3: backward compositor
+# ---------------------------------------------------------------------------
+
+def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
+                   tile_count: torch.Tensor, bg: torch.Tensor,
+                   n_contrib: torch.Tensor, out_color: torch.Tensor,
+                   final_t: torch.Tensor, d_color: torch.Tensor, width: int,
+                   height: int, tile_x: int,
+                   tile_y: int) -> torch.Tensor:
+    """K3: per-instance gradients [9, L] of the compositor on the staged
+    table ``attr`` [10, L], from the forward's ``out_color`` [3,H,W],
+    ``final_t`` and ``n_contrib`` [H,W] and the colour cotangent
+    ``d_color`` [3,H,W].  Rows: d_rgb (3), d_mean2d (2, NDC units of the
+    full frame), d_conic (3, true b-gradient), d_opacity (1).  One block
+    per tile, one thread per pixel, a front-to-back replay in batches of
+    BACKWARD_CHUNK instances, bounded by the tile's largest n_contrib;
+    slots never visited are zero; no atomics, so two launches agree to
+    the bit.  Plain version: compositing.backward_tiles."""
+    if attr.device.type == "cpu":
+        return compositing.backward_tiles(attr, tile_start, tile_count, bg,
+                                          n_contrib, out_color, final_t,
+                                          d_color, width, height, tile_x,
+                                          tile_y)
+    dev = attr.device
+    if dev.type != "cuda":
+        raise ValueError(f"backward_tiles: unsupported device {dev}")
+    grid_x = (width + tile_x - 1) // tile_x
+    grid_y = (height + tile_y - 1) // tile_y
+    nt = grid_x * grid_y
+    threads = tile_x * tile_y
+    if not 32 <= threads <= 1024 or threads % 32:
+        raise ValueError(f"tile {tile_x}x{tile_y}: the kernel takes a "
+                         "multiple of 32 pixels per tile, 32 to 1024")
+    n_slots = attr.shape[1]
+    _check(attr, "attr", torch.float32, (ROWS, n_slots), dev)
+    _check(tile_start, "tile_start", torch.int32, (nt,), dev)
+    _check(tile_count, "tile_count", torch.int32, (nt,), dev)
+    _check(bg, "bg", torch.float32, (3,), dev)
+    _check(n_contrib, "n_contrib", torch.int32, (height, width), dev)
+    _check(out_color, "out_color", torch.float32, (3, height, width), dev)
+    _check(final_t, "final_t", torch.float32, (height, width), dev)
+    _check(d_color, "d_color", torch.float32, (3, height, width), dev)
+    grad = torch.zeros((compositing.GRAD_ROWS, n_slots),
+                       dtype=torch.float32, device=dev)
+    fn = _fn("backward")
+    err = fn(tile_start.data_ptr(), tile_count.data_ptr(), attr.data_ptr(),
+             n_slots, width, height, grid_x, grid_y, tile_x, tile_y,
+             BACKWARD_CHUNK, bg.data_ptr(),
+             n_contrib.data_ptr(), out_color.data_ptr(), final_t.data_ptr(),
+             d_color.data_ptr(), grad.data_ptr(), _stream())
+    _launched("backward", err)
+    return grad

@@ -95,7 +95,8 @@ def test_invalid_instances_sort_last(rng):
     assert invalid.any() and not invalid.all()
     assert (n(keys >> 32)[invalid] == GX * GY).all()
     assert (n(attr)[:, invalid] == 0).all()
-    attr_s, ids, start, count = tbin.sort_instances(keys, gid, attr, GX * GY)
+    attr_s, ids, start, count, _ = tbin.sort_instances(keys, gid, attr,
+                                                       GX * GY)
     v = int(count.sum())
     assert v == int((~invalid).sum())
     assert (n(ids)[:v] >= 0).all() and (n(ids)[v:] == -1).all()

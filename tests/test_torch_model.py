@@ -52,7 +52,7 @@ def test_checkpoint_leaves_map_explicitly(arena):
         arena
     assert jn == tn == 82496
     assert alive.shape == (tn,) and bool((alive == 1).all())
-    names = convert.net_leaf_names(tnets)
+    names = tnets.leaf_names()
     # leaf 9 is the motion head's first weight, leaf 20 the opacity head's
     # last bias (dict keys sort "b" before "w")
     assert names[9] == "motion_mlp.layers.0.weight"

@@ -8,6 +8,12 @@ the JAX package on the CPU at 338x254 from ring camera 0 at ts = 0.5
 tiles, every tile's slots kept):
 
     JAX_PLATFORMS=cpu python -m tests.test_torch_slice
+
+With the argument ``grads`` it (re)generates the second golden, the
+gradients of one training view of that checkpoint (see
+``make_grads_golden``):
+
+    JAX_PLATFORMS=cpu python -m tests.test_torch_slice grads
 """
 import os
 import sys
@@ -29,12 +35,15 @@ from saro_gs_tpu.models import field as jfield
 from saro_gs_tpu.models import gaussians as jgm
 from saro_gs_tpu.ops.projection import CameraParams as JCameraParams
 from saro_gs_tpu.ops.rasterize import RasterConfig as JRasterConfig
+from tests import torch_parity as tgolden
 from tests.torch_parity import n, psnr
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARENA = os.path.join(ROOT, "checkpoints", "arena")
 PLY = os.path.join(ARENA, "point_cloud", "iteration_best", "point_cloud.ply")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_arena_338x254.npz")
+GRADS_GOLDEN = os.path.join(ROOT, "tests", "golden",
+                            "torch_arena_grads_338x254.npz")
 GOLDEN_W, GOLDEN_H, GOLDEN_TS, GOLDEN_FOVX = 338, 254, 0.5, 0.85
 # the tile size changes the image: the reference's rect ceiling
 # (auxiliary.h:46-56, kept by both packages) drops some boundary tiles
@@ -197,5 +206,88 @@ def make_golden(path=GOLDEN):
           file=sys.stderr)
 
 
+def test_arena_gradients_match_jax_golden():
+    """The real checkpoint's training gradients for one view, on the CPU
+    through the plain versions of all four kernels, against the JAX
+    package's (the check chip_smoke.py makes on the card): the loss to
+    1e-5, every group's sampled gradients within 0.05 of the group's
+    largest entry, its norm within 5%."""
+    mt = tcfg.load_cfg_args(os.path.join(ARENA, "cfg_args.json"))
+    params, nets, alive, fstatic, _ = tscene.load_gaussian_checkpoint(
+        PLY, mt.model_config(), device="cpu")
+    report = tgolden.check_gradients(GRADS_GOLDEN, mt, params, nets, alive,
+                                     fstatic, device="cpu")
+    assert report["loss_rel_err"] <= 1e-5, report
+    assert report["worst_rel_err"] <= 0.05, report
+    assert report["worst_norm_rel_err"] <= 0.05, report
+    assert len(report["groups"]) >= 8
+
+
+def make_grads_golden(path=GRADS_GOLDEN):
+    """Loss and gradients of one training view of the arena checkpoint by
+    the JAX package on the CPU (train/step.py:batch_loss_fn through
+    rasterize(backend="jax"), dynamic stage, ring camera 0, ts 0.5,
+    338x254, 32x32 tiles, every tile's slots kept, white background, the
+    checkpoint's loss weights, seeded uint8 noise as ground truth): the
+    loss, each parameter group's gradient norm and largest entry, the
+    gradient rows of every 16th Gaussian (every 64th for features_rest),
+    of one 16x16 patch of plane 0, and every head gradient's norm."""
+    from saro_gs_tpu import scene as jscene
+    from saro_gs_tpu.ops import binning, projection
+    from saro_gs_tpu.train import step as jstep
+
+    cfg = jcfg.load_cfg_args(os.path.join(ARENA, "cfg_args.json"))
+    mcfg = cfg.model_config()
+    tpl = jgm.init_nets(jax.random.PRNGKey(0), mcfg)
+    params, nets, alive, fstatic, npts = jscene.load_gaussian_checkpoint(
+        PLY, tpl, capacity=None)
+    w, h = GOLDEN_W, GOLDEN_H
+    cam_np = tcams.camera_from_c2w(tcams.ring_cameras(21)[0], GOLDEN_FOVX,
+                                   w, h, GOLDEN_TS).raster_params("cpu")
+    cam = projection.CameraParams(*[jnp.asarray(n(x)) for x in cam_np])
+    d = jgm.deform(params, nets, mcfg, fstatic, jnp.float32(GOLDEN_TS))
+    pre = projection.preprocess(d.xyz, d.scaling, d.rotation,
+                                d.opacity.reshape(-1), cam, w, h,
+                                GOLDEN_TILE, GOLDEN_TILE, sh_degree=3,
+                                shs=d.shs, active=alive, tight_rect=True)
+    gx, gy = -(-w // GOLDEN_TILE), -(-h // GOLDEN_TILE)
+    bins = binning.bin_gaussians(pre, gx, gy, 1 << 21, 64)
+    assert int(bins.num_dropped) == 0
+    max_slots = int(np.asarray(bins.tile_count).max())
+    rcfg = JRasterConfig(tile_x=GOLDEN_TILE, tile_y=GOLDEN_TILE, chunk=64,
+                         max_instances=1 << 21, max_slots=max_slots,
+                         backend="jax", packed=False, tight_rect=True)
+    st = jstep.StepStatics(mcfg=mcfg, rcfg=rcfg, weights=cfg.loss_weights(),
+                           width=w, height=h,
+                           cfg_lrs=jstep.make_lr_statics(cfg), extent=1.0)
+    gt = jnp.asarray(tgolden.noise_gt(1, h, w).astype(np.float32)
+                     * np.float32(1.0 / 255.0))
+    cams = jax.tree_util.tree_map(lambda x: x[None], cam)
+    ts = jnp.full((1, 1, 1), GOLDEN_TS, jnp.float32)
+
+    def loss_fn(points, nets_, m2d):
+        return jstep.batch_loss_fn(
+            points, nets_, m2d, cams=cams, gt=gt, timestamps=ts,
+            alive=alive, bg=jnp.ones(3), fstatic=fstatic, st=st,
+            stage="dynamatic", sh_degree=3)
+
+    (loss, _), (g_pts, g_nets, g_m2d) = jax.jit(jax.value_and_grad(
+        loss_fn, argnums=(0, 1, 2), has_aux=True))(
+        params, nets, jnp.zeros((1, npts, 2), jnp.float32))
+    groups = {k: np.asarray(v) for k, v in g_pts._asdict().items()}
+    groups["mean2d"] = np.asarray(g_m2d[0])
+    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(g_nets)]
+    out = tgolden.summarize(float(loss), groups, leaves)
+    assert all(np.isfinite(v).all() for v in out.values())
+    np.savez_compressed(path, width=w, height=h, ts=GOLDEN_TS,
+                        fovx=GOLDEN_FOVX, tile=GOLDEN_TILE, camera=0,
+                        num_points=npts, max_slots=max_slots, **out)
+    print(f"wrote {path}: loss {float(loss):.8f}, max_slots {max_slots}, "
+          f"{os.path.getsize(path)} bytes", file=sys.stderr)
+
+
 if __name__ == "__main__":
-    make_golden()
+    if sys.argv[1:] == ["grads"]:
+        make_grads_golden()
+    else:
+        make_golden()
