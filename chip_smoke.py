@@ -17,10 +17,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      table with a seeded colour cotangent: every row of [9, L] within 1e-5
      of the row's largest entry and 1e-5 in relative L2, unvisited slots
      exactly zero, two launches equal to the bit;
-  6. K4 (field-gradient scatter) against its plain version on the taps of
-     the checkpoint's points on a 128x128 spatial plane (both mip
-     brackets) and on a time plane, and on a hot cell: within 1e-5 of the
-     output's largest entry, two launches equal to the bit;
+  6. K4 (field-gradient scatter, scatter_mip_taps) against its plain
+     version on the grid gradients of the checkpoint's points on its three
+     128x128 spatial planes (both mip brackets in one call), on one time
+     plane (strided dfeat rows) and on a hot cell (every point on the
+     coarsest texel): within 1e-5 of the output's largest entry, two
+     launches equal to the bit; ms per call beside one index_add_ over the
+     same taps;
   7. the render slice: the arena checkpoint rendered by render.test_render
      at 1352x1014 from ring camera 0 over bench.py's timestamp sweep (30
      frames, 5 warm-up), timed with CUDA events; FPS, ms per stage and the
@@ -34,9 +37,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      learning rates, the integral prune and LR scaling).  The same first
      step from two copies of the state must give equal states to the bit;
      10 checked steps (2 warm-up, 8 timed with CUDA events: steps/s, every
-     kernel's launches, all four > 0), then 5 more for the ms per stage
-     (3) and the card's busy share under torch.profiler (2); no bad step
-     and nothing dropped on any of the 15;
+     kernel's launches, all four > 0, K4 once per plane), then 5 more for
+     the ms per stage (3) and the card's busy share under torch.profiler
+     (2); no bad step and nothing dropped on any of the 15;
  10. gradient parity with the JAX package: one training view at 338x254
      against tests/golden/torch_arena_grads_338x254.npz (loss within 1e-5,
      every group's gradients within 0.05 of its largest entry);
@@ -321,67 +324,65 @@ def main():
         f"max, {k3_l2:.3g} in relative L2 (limits {K3_TOL:g}), "
         f"{int(unvisited.sum())} all-zero slots equal, two launches "
         f"bit-equal; kernel {k3_ms:.4f} ms in batches of "
-        f"{tk.BACKWARD_CHUNK} instances, plain {k3_plain_ms:.1f} ms (one "
+        f"{tk.BACKWARD_CHUNK} instances, clusters of {tk.BACKWARD_SPLIT} "
+        f"bands a tile, plain {k3_plain_ms:.1f} ms (one "
         f"call), bound {k3_bound:.4f} ms ({k3_pairs} instance-pixel pairs "
         f"replayed, {k3_contrib} of them contributing, {k3_ops} flops, "
         f"{k3_bytes} bytes)")
 
     # ---- 6. K4 against its plain version ------------------------------------
-    # the taps sample_mip's backward makes for the checkpoint's points: the
-    # (x, y) plane with its mip pyramid (two brackets) and the (x, t) plane
+    # the grid gradients sample_mip's backward makes for the checkpoint's
+    # points: its three spatial planes (128x128, a 7-level pyramid: both
+    # brackets in one call), one time plane (no pyramid), and a hot cell
     fcfg = mcfg.field
     with torch.no_grad():
         norm = (params.xyz - fstatic.aabb_min) / (fstatic.aabb_max
                                                   - fstatic.aabb_min)
         tn = gm.get_temporal_pos(params, mcfg) * fstatic.duration \
             / (fstatic.duration - 1.0)
+        coords4 = torch.cat([norm, tn.reshape(-1, 1)], dim=-1)
         levels4 = field_mod.get_levels(fcfg, fstatic, gm.get_scaling(params))
     c_feat = fcfg.out_dim
+    reso = fcfg.reso(fcfg.multires[0])
     gen = torch.Generator(device="cpu").manual_seed(1)
     dfeat = torch.randn(npts, c_feat, generator=gen).to(dev)
-    rx, ry, _, rt = fcfg.reso(fcfg.multires[0])
-    n_lv = mip.max_mip_levels(ry, rx, field_mod.SPATIAL_MAX_MIP)
-    sizes = [(ry >> l, rx >> l) for l in range(n_lv + 1)]
-    offs = torch.as_tensor(np.cumsum([0] + [a * b for a, b in sizes])[:-1],
-                           device=dev)
-    total_sp = int(sum(a * b for a, b in sizes))
-    lvl = torch.clamp(torch.minimum(levels4[:, 0], levels4[:, 1]), 0.0,
-                      float(n_lv))
-    l0 = torch.clamp(torch.floor(lvl).long(), 0, n_lv)
-    l1 = torch.clamp(l0 + 1, 0, n_lv)
-    frac = lvl - l0
+    # autograd hands the backward strided rows: one case reads them so
+    dfeat_wide = torch.randn(npts, 2 * c_feat, generator=gen).to(dev)
     cases = []
-    for name, l, factor in (("spatial l0", l0, 1.0 - frac),
-                            ("spatial l1", l1, frac)):
-        cells, wts = mip._tap_cells_weights(
-            norm[:, 0], norm[:, 1], torch.full_like(l, rx) >> l,
-            torch.full_like(l, ry) >> l, offs[l])
-        cases.append((name, cells, wts, (dfeat * factor[:, None])
-                      .contiguous(), total_sp))
-    cells, wts = mip._tap_cells_weights(norm[:, 0], tn[:, 0], rx, rt, 0)
-    cases.append(("time", cells, wts, dfeat, rx * rt))
-    hot = torch.full((4, npts), 37, dtype=torch.int64, device=dev)
-    cases.append(("hot cell", hot, cases[0][2], dfeat, 1024))
+    for a, b in field_mod.COMBS:
+        spatial = 3 not in (a, b)
+        if not spatial and any(not c[5] for c in cases):
+            continue                          # one time plane
+        h, w = reso[b], reso[a]
+        n_lv = mip.max_mip_levels(
+            h, w, field_mod.SPATIAL_MAX_MIP if spatial else 0)
+        cases.append((f"plane {'xyzt'[a]}{'xyzt'[b]}",
+                      coords4[:, [a, b]].contiguous(),
+                      torch.minimum(levels4[:, a], levels4[:, b]),
+                      dfeat if spatial else dfeat_wide[:, :c_feat],
+                      (h, w, n_lv), spatial))
+    h_sp, w_sp, n_sp = cases[0][4]
+    hot_coords = torch.tensor([[0.3, 0.7]], device=dev).expand(npts, 2)
+    cases.append(("hot cell", hot_coords.contiguous(),
+                  torch.full((npts,), float(n_sp), device=dev), dfeat,
+                  (h_sp, w_sp, n_sp), True))
     k4_err, k4_rel, k4 = 0.0, 0.0, {}
-    for name, cells, wts, df, total in cases:
-        ko = grid_scatter.scatter_taps(cells, wts, df, total)
-        ko2 = grid_scatter.scatter_taps(cells, wts, df, total)
-        po = grid_scatter.scatter_taps_plain(cells, wts, df, total)
+    for name, coords, lvl, df, (h, w, n_lv), _ in cases:
+        args = (coords, lvl, df, h, w, n_lv)
+        ko = grid_scatter.scatter_mip_taps(*args)
+        ko2 = grid_scatter.scatter_mip_taps(*args)
+        po = grid_scatter.scatter_mip_taps_plain(*args)
         torch.cuda.synchronize()
         check(torch.equal(ko, ko2), f"K4 {name}: two launches differ")
         scale = float(po.abs().max())
         err = float((ko - po).abs().max())
-        check(scale > 0 and err <= 1e-5 * scale,
+        check(ko.shape == po.shape and scale > 0 and err <= 1e-5 * scale,
               f"K4 {name}: differs by {err} (output max {scale})")
         k4_err, k4_rel = max(k4_err, err), max(k4_rel, err / scale)
-        if name == "hot cell":
-            continue
-        ms = cuda_ms(lambda: grid_scatter.scatter_taps(cells, wts, df,
-                                                       total), 20, torch)
-        sort_ms = cuda_ms(lambda: grid_scatter.sort_taps(cells, wts, total),
-                          20, torch)
-        plain_ms = cuda_ms(lambda: grid_scatter.scatter_taps_plain(
-            cells, wts, df, total), 10, torch)
+        ms = cuda_ms(lambda: grid_scatter.scatter_mip_taps(*args), 20, torch)
+        plain_ms = cuda_ms(lambda: grid_scatter.scatter_mip_taps_plain(
+            *args), 5, torch)
+        cells, wts, total = grid_scatter.mip_taps(coords, lvl, h, w, n_lv)
 
         def library():
             out = torch.zeros((total, c_feat), device=dev)
@@ -390,20 +391,24 @@ def main():
             return out
         lib_ms = cuda_ms(library, 10, torch)
         n_taps = cells.shape[0]
-        nbytes = n_taps * npts * 8 + npts * c_feat * 4 + c_feat * total * 4
+        # coords and level read once, dfeat read once, the output written
+        nbytes = npts * 8 + (npts * 4 if n_lv else 0) + npts * c_feat * 4 \
+            + c_feat * total * 4
         ops = n_taps * npts * c_feat * K4_FLOPS_PER_TAP_CHANNEL
-        k4[name] = dict(ms=ms, sort_ms=sort_ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, bytes=nbytes,
+        k4[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        beats_library=ms < lib_ms, taps=n_taps * npts,
+                        cells=total, bytes=nbytes, max_rel_err=err / scale,
                         bound_ms=max(nbytes / PEAK_BYTES,
                                      ops / PEAK_F32) * 1e3,
                         bound_by="operations" if ops / PEAK_F32
                         > nbytes / PEAK_BYTES else "bytes")
-        log(f"K4 scatter, {name} ({n_taps}x{npts} taps -> {c_feat}x{total})"
-            f": error {err / scale:.3g} of the output's max (limit 1e-5), "
-            f"bit-equal; wrapper {ms:.4f} ms (its sort and segment search "
-            f"{sort_ms:.4f} ms), plain {plain_ms:.4f} ms, one index_add_ "
-            f"{lib_ms:.4f} ms, bound {k4[name]['bound_ms']:.5f} ms "
-            f"({nbytes} bytes)")
+        log(f"K4 scatter_mip_taps, {name} ({n_taps}x{npts} taps -> "
+            f"{c_feat}x{total}, {n_lv} levels, dfeat row stride "
+            f"{df.stride(0)}): error {err / scale:.3g} of the output's max "
+            f"(limit 1e-5), bit-equal; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, one index_add_ {lib_ms:.4f} ms "
+            f"({'kernel faster' if ms < lib_ms else 'LIBRARY FASTER'}), "
+            f"bound {k4[name]['bound_ms']:.5f} ms ({nbytes} bytes)")
 
     # ---- 7. the render slice: the eval render sweep -------------------------
     ts_list = [0.5 + 0.49 * math.sin(i / 7) for i in range(30)]
@@ -578,6 +583,10 @@ def main():
               ("expand", "forward", "backward", "grid_scatter")),
           f"train: a kernel never launched in the timed steps: "
           f"{train_counts}")
+    # K4: one call per plane a step, both mip brackets in it
+    check(train_counts["grid_scatter"] == len(nets.field.planes) * n_timed,
+          f"train: K4 launched {train_counts['grid_scatter']} times in "
+          f"{n_timed} steps, expected one per plane")
     log(f"train: {1e3 / step_ms:.3f} steps/s ({step_ms:.2f} ms/step) over "
         f"{n_timed} steps, batch {BATCH} at {W}x{H}; loss "
         f"{all_metrics[0]['loss']:.5f} -> {all_metrics[-1]['loss']:.5f} "
@@ -648,7 +657,7 @@ def main():
           "gradient parity with JAX failed")
 
     # ---- 11. summary --------------------------------------------------------
-    k4m = k4["spatial l0"]
+    k4m = k4[cases[0][0]]
     kernels = [
         {"name": "expand_instances (K2)", "route": "cuda",
          "source": "saro_gs_torch/csrc/expand.cu",
@@ -672,14 +681,16 @@ def main():
          "check": f"each row <= {K3_TOL:g} of its max and in relative L2, "
                   "unvisited slots zero, two launches bit-equal",
          "rel_l2_err": k3_l2, "batch": tk.BACKWARD_CHUNK,
+         "bands": tk.BACKWARD_SPLIT,
          "pairs_replayed": k3_pairs, "pairs_contributing": k3_contrib,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
-        {"name": "scatter_taps (K4)", "route": "cuda",
+        {"name": "scatter_mip_taps (K4)", "route": "cuda",
          "source": "saro_gs_torch/csrc/grid_scatter.cu",
          "replaces": "saro_gs_tpu/ops/grid_scatter.py:50",
          "launches": train_counts["grid_scatter"], "max_abs_err": k4_err,
          "check": "<= 1e-5 of the output's max, two launches bit-equal",
+         "shape": cases[0][0],
          "ms": k4m["ms"], "plain_ms": k4m["plain_ms"],
          "bound_ms": k4m["bound_ms"], "bound_by": k4m["bound_by"],
          "library_ms": k4m["library_ms"]},

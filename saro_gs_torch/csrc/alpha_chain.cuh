@@ -38,6 +38,26 @@ __device__ __forceinline__ void stage_batch(float* sh,
   }
 }
 
+// stage_batch's copy with cp.async: issued by every thread of the block and
+// committed as one group, so the caller can replay the batch before it
+// while this one is in flight (cp.async.wait_group, then __syncthreads).
+// Slots past nb are zero-filled by the copy itself (source size 0), never
+// read from the table.
+__device__ __forceinline__ void stage_batch_async(
+    float* sh, const float* __restrict__ attr, int L, int first, int nb,
+    int chunk) {
+  for (int i = threadIdx.x; i < kRows * chunk; i += blockDim.x) {
+    const int r = i / chunk;
+    const int j = i - r * chunk;
+    const bool in = j < nb;
+    const float* src = in ? attr + (size_t)r * L + first + j : attr;
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(sh + i);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(in ? 4 : 0));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
 struct Splat {
   float dx, dy;  // splat centre minus pixel
   float g;       // expf(min(power, 0))

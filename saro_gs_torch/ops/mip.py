@@ -13,11 +13,11 @@ The pyramid is flattened into one [total, C] table so each sample gathers
 
 ``sample_mip`` is a ``torch.autograd.Function``.  Its backward gives the
 grid gradient only: each bracketing level's taps are scattered into the
-flattened pyramid by ``grid_scatter.scatter_taps`` (kernel K4 on the card,
-deterministic), and the pyramid's cotangent is carried down the 2x2
-mean-pool chain to the base.  ``coords`` and ``level`` get no gradient:
-the reference detaches every field input before sampling
-(saro_gaussian.py:780).
+flattened pyramid by ``grid_scatter.scatter_mip_taps`` (kernel K4 on the
+card, both brackets in one call, deterministic), and the pyramid's
+cotangent is carried down the 2x2 mean-pool chain to the base.
+``coords`` and ``level`` get no gradient: the reference detaches every
+field input before sampling (saro_gaussian.py:780).
 """
 from __future__ import annotations
 
@@ -27,6 +27,9 @@ import numpy as np
 import torch
 
 from . import grid_scatter
+
+# the clamp of the gathers, shared with the backward's taps
+_at_most = grid_scatter._at_most
 
 
 def max_mip_levels(h: int, w: int, cap: int) -> int:
@@ -48,12 +51,6 @@ def build_pyramid(grid: torch.Tensor, num_levels: int) -> List[torch.Tensor]:
         g = g.reshape(c, h // 2, 2, w // 2, 2).mean(dim=(2, 4))
         levels.append(g)
     return levels
-
-
-def _at_most(x, bound):
-    if isinstance(bound, int):
-        return torch.clamp(x, max=bound)
-    return torch.minimum(x, bound)
 
 
 def _bilinear_taps(flat, u, v, w_l, h_l, base):
@@ -107,59 +104,20 @@ def _sample_mip_impl(grid: torch.Tensor, coords: torch.Tensor,
     return s0 * (1 - frac)[:, None] + s1 * frac[:, None]
 
 
-def _tap_cells_weights(u, v, w_l, h_l, base):
-    """Flat texel ids [4, N] int64 and bilinear weights [4, N] of one
-    level's taps; ``w_l``/``h_l``/``base`` are python ints or per-point
-    int tensors.  Clamped border taps repeat an id, and their weights
-    simply add."""
-    x = u * w_l - 0.5
-    y = v * h_l - 0.5
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    fx = torch.clamp(x - x0, 0, 1)
-    fy = torch.clamp(y - y0, 0, 1)
-    x0i = _at_most(torch.clamp(x0.to(torch.int64), min=0), w_l - 1)
-    x1i = _at_most(x0i + 1, w_l - 1)
-    y0i = _at_most(torch.clamp(y0.to(torch.int64), min=0), h_l - 1)
-    y1i = _at_most(y0i + 1, h_l - 1)
-    cells = torch.stack([base + y0i * w_l + x0i, base + y0i * w_l + x1i,
-                         base + y1i * w_l + x0i, base + y1i * w_l + x1i])
-    one = torch.ones_like(fx)
-    wts = torch.stack([(one - fx) * (one - fy), fx * (one - fy),
-                       (one - fx) * fy, fx * fy])
-    return cells, wts
-
-
 def _grid_grad(shape, coords, level, max_level: int,
                dfeat: torch.Tensor) -> torch.Tensor:
     """dL/dgrid [C, H, W] from dL/dsample [N, C]
     (saro_gs_tpu/ops/mip.py:_sample_mip_bwd)."""
     c, h, w = shape
-    u, v = coords[:, 0], coords[:, 1]
-    dfeat = dfeat.to(torch.float32).contiguous()
     n_levels = max_mip_levels(h, w, max_level)
+    # both brackets' taps in one call (kernel K4 on the card)
+    d_flat = grid_scatter.scatter_mip_taps(
+        coords.contiguous(),
+        level.to(torch.float32).contiguous() if n_levels else None,
+        dfeat.to(torch.float32), h, w, n_levels)            # [C, total]
     if n_levels == 0:
-        cells, wts = _tap_cells_weights(u, v, w, h, 0)
-        return grid_scatter.scatter_taps(cells, wts, dfeat,
-                                         h * w).reshape(c, h, w)
-    level = torch.clamp(level.to(torch.float32), 0.0, float(n_levels))
-    l0 = torch.clamp(torch.floor(level).to(torch.int64), 0, n_levels)
-    l1 = torch.clamp(l0 + 1, 0, n_levels)
-    frac = level - l0
-    sizes = [(h >> l, w >> l) for l in range(n_levels + 1)]
-    offs_np = np.cumsum([0] + [hl * wl for hl, wl in sizes])
-    total = int(offs_np[-1])
-    offs = torch.as_tensor(offs_np[:-1], dtype=torch.int64,
-                           device=dfeat.device)
-
-    def bracket(l, factor):
-        w_l = torch.bitwise_right_shift(torch.full_like(l, w), l)
-        h_l = torch.bitwise_right_shift(torch.full_like(l, h), l)
-        cells, wts = _tap_cells_weights(u, v, w_l, h_l, offs[l])
-        return grid_scatter.scatter_taps(cells, wts,
-                                         dfeat * factor[:, None], total)
-
-    d_flat = bracket(l0, 1.0 - frac) + bracket(l1, frac)     # [C, total]
+        return d_flat.reshape(c, h, w)
+    sizes, offs_np = grid_scatter.level_sizes(h, w, n_levels)
     # transpose of flatten(build_pyramid): carry each level's cotangent
     # down the 2x2 mean-pool chain (a factor 1/4 per level)
     d = None

@@ -9,7 +9,7 @@ library of the package.
   * K3, the backward compositor (``csrc/backward.cu``), replaces
     ``saro_gs_tpu/ops/tile_kernels.py:_bwd_kernel``;
   * K4, the field-gradient scatter (``csrc/grid_scatter.cu``), is built
-    here and wrapped in ``ops/grid_scatter.py``.
+    here and wrapped in ``ops/grid_scatter.py:scatter_mip_taps``.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, under
@@ -17,8 +17,10 @@ library with a plain C interface, at first use, under
 The libraries are named by a hash of source, shared headers and flags,
 so an edited source is rebuilt.  ``-fmad=false`` keeps every multiply and
 add rounded on its own, as PyTorch's eager kernels round them, so a
-kernel and its plain version compute the same bits; ``--use_fast_math`` is
-not used, so ``expf`` is the accurate one.
+kernel and its plain version compute the same bits (K3, held to its plain
+version by a tolerance, fuses some of its gradient arithmetic by explicit
+``fmaf``); ``--use_fast_math`` is not used, so ``expf`` is the accurate
+one.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs (``torch.empty``; zeroed where the kernel leaves slots unwritten),
@@ -59,15 +61,23 @@ _KERNELS = {
                 [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P, _P, _P, _P, _P, _P]),
     "backward": ("backward.cu", "saro_backward_tiles",
-                 [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                   _P, _P, _P, _P, _P, _P, _P]),
-    "grid_scatter": ("grid_scatter.cu", "saro_scatter_taps",
-                     [_P, _P, _P, _P, _I, _I, _P, _P]),
+    "grid_scatter": ("grid_scatter.cu", "saro_scatter_mip_taps",
+                     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+}
+# further C functions of a library: name -> (argtypes, restype)
+_HELPERS = {
+    "grid_scatter": {"saro_scatter_mip_workspace": ([_I] * 5,
+                                                    ctypes.c_longlong)},
 }
 # instances the backward stages per batch, whatever the forward's chunk:
-# its shared memory holds nine partial sums per warp for each of them
-# (38 KB at 32 warps)
-BACKWARD_CHUNK = 32
+# two staging buffers and nine partial sums per warp for each of them
+# (52 KB a block at 8 warps)
+BACKWARD_CHUNK = 128
+# the backward splits a tile into this many bands of rows, a cluster of
+# one block each (at most 256 threads; csrc/backward.cu:kSplit)
+BACKWARD_SPLIT = 4
 
 # launches of each kernel since the last reset_launches()
 launches = {name: 0 for name in _KERNELS}
@@ -87,7 +97,8 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _lib_path(src: str) -> str:
+def _lib_path(name: str) -> str:
+    src = _KERNELS[name][0]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
     for name in [src, *headers]:
@@ -99,7 +110,7 @@ def _lib_path(src: str) -> str:
 
 def _compile(name: str, verbose: bool) -> str:
     src, _, _ = _KERNELS[name]
-    out = _lib_path(src)
+    out = _lib_path(name)
     if os.path.exists(out):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -124,18 +135,23 @@ def build(verbose: bool = False) -> float:
         logs = dict(zip(todo, ex.map(lambda n: _compile(n, verbose), todo)))
     for name in todo:
         src, fn, argtypes = _KERNELS[name]
-        lib = ctypes.CDLL(_lib_path(src))
+        lib = ctypes.CDLL(_lib_path(name))
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
+        for helper, (h_args, h_res) in _HELPERS.get(name, {}).items():
+            getattr(lib, helper).argtypes = h_args
+            getattr(lib, helper).restype = h_res
         _libs[name] = lib
         if verbose and logs[name]:
             print(f"[build] {src}:\n{logs[name].strip()}", flush=True)
     return time.perf_counter() - t0
 
 
-def _fn(name: str):
+def _fn(name: str, symbol: str = ""):
+    """The C function ``symbol`` (default: the launch) of library
+    ``name``, built at first use."""
     build()
-    return getattr(_libs[name], _KERNELS[name][1])
+    return getattr(_libs[name], symbol or _KERNELS[name][1])
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device):
@@ -330,11 +346,12 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     table ``attr`` [10, L], from the forward's ``out_color`` [3,H,W],
     ``final_t`` and ``n_contrib`` [H,W] and the colour cotangent
     ``d_color`` [3,H,W].  Rows: d_rgb (3), d_mean2d (2, NDC units of the
-    full frame), d_conic (3, true b-gradient), d_opacity (1).  One block
-    per tile, one thread per pixel, a front-to-back replay in batches of
-    BACKWARD_CHUNK instances, bounded by the tile's largest n_contrib;
-    slots never visited are zero; no atomics, so two launches agree to
-    the bit.  Plain version: compositing.backward_tiles."""
+    full frame), d_conic (3, true b-gradient), d_opacity (1).  A tile is a
+    cluster of BACKWARD_SPLIT blocks, one band of rows each, launched
+    heaviest first (by the tile's replay bound, its largest n_contrib); a
+    front-to-back replay in batches of BACKWARD_CHUNK instances; slots
+    never visited are zero; no atomics, so two launches agree to the bit.
+    Plain version: compositing.backward_tiles."""
     if attr.device.type == "cpu":
         return compositing.backward_tiles(attr, tile_start, tile_count, bg,
                                           n_contrib, out_color, final_t,
@@ -346,10 +363,10 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     grid_x = (width + tile_x - 1) // tile_x
     grid_y = (height + tile_y - 1) // tile_y
     nt = grid_x * grid_y
-    threads = tile_x * tile_y
-    if not 32 <= threads <= 1024 or threads % 32:
-        raise ValueError(f"tile {tile_x}x{tile_y}: the kernel takes a "
-                         "multiple of 32 pixels per tile, 32 to 1024")
+    if tile_y < BACKWARD_SPLIT or tile_x * -(-tile_y // BACKWARD_SPLIT) > 256:
+        raise ValueError(f"tile {tile_x}x{tile_y}: the kernel takes at "
+                         f"least {BACKWARD_SPLIT} rows and at most 256 "
+                         f"pixels in each of {BACKWARD_SPLIT} bands")
     n_slots = attr.shape[1]
     _check(attr, "attr", torch.float32, (ROWS, n_slots), dev)
     _check(tile_start, "tile_start", torch.int32, (nt,), dev)
@@ -361,10 +378,18 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     _check(d_color, "d_color", torch.float32, (3, height, width), dev)
     grad = torch.zeros((compositing.GRAD_ROWS, n_slots),
                        dtype=torch.float32, device=dev)
+    # each tile's replay bound, and the tiles heaviest first: a cluster's
+    # time follows its bound
+    padded = torch.nn.functional.pad(
+        n_contrib, (0, grid_x * tile_x - width, 0, grid_y * tile_y - height))
+    bound = torch.minimum(padded.reshape(grid_y, tile_y, grid_x, tile_x)
+                          .amax(dim=(1, 3)).reshape(-1), tile_count)
+    order = torch.argsort(bound, descending=True, stable=True).to(
+        torch.int32)
     fn = _fn("backward")
-    err = fn(tile_start.data_ptr(), tile_count.data_ptr(), attr.data_ptr(),
-             n_slots, width, height, grid_x, grid_y, tile_x, tile_y,
-             BACKWARD_CHUNK, bg.data_ptr(),
+    err = fn(order.data_ptr(), bound.data_ptr(), tile_start.data_ptr(),
+             attr.data_ptr(), n_slots, width, height, grid_x, grid_y, tile_x,
+             tile_y, BACKWARD_CHUNK, bg.data_ptr(),
              n_contrib.data_ptr(), out_color.data_ptr(), final_t.data_ptr(),
              d_color.data_ptr(), grad.data_ptr(), _stream())
     _launched("backward", err)

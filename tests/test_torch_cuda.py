@@ -144,6 +144,9 @@ def test_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError, match="on"):
         tile_kernels.forward_tiles(attr, start.cpu(), start,
                                    torch.ones(3, device=dev), 8, 8, 8, 8, 64)
+    with pytest.raises(ValueError, match="levels"):
+        grid_scatter.scatter_mip_taps(torch.zeros(4, 2, device=dev), None,
+                                      torch.zeros(4, 8, device=dev), 8, 8, 4)
 
 
 @pytest.mark.parametrize("tile,chunk", [(16, 64), (32, 128), (32, 7)])
@@ -202,40 +205,101 @@ def test_backward_kernel_masks_rows_past_the_range(dev):
         p[:, 0].abs().max().item()
 
 
-@pytest.mark.parametrize("n_pts,total,c", [(1000, 2048, 8), (300, 513, 16),
-                                           (4096, 4096, 32), (50, 40, 70)])
-def test_scatter_kernel_matches_plain(dev, n_pts, total, c):
-    """K4 against the per-tap index_add_: 1e-5 of the output's largest
-    entry, two launches equal to the bit."""
-    rng = np.random.RandomState(0)
-    cells = torch.as_tensor(rng.randint(0, total, (4, n_pts))).to(dev)
-    weights = torch.as_tensor(rng.rand(4, n_pts).astype(np.float32)).to(dev)
-    dfeat = torch.as_tensor(rng.randn(n_pts, c).astype(np.float32)).to(dev)
+def test_backward_kernel_heavy_tile(dev):
+    """One tile with thousands of faint, overlapping instances: the
+    replay runs many batches deep (the double-buffered staging, the
+    per-warp bounds), held as in test_backward_kernel_matches_plain."""
+    rng = np.random.RandomState(5)
+    n, tile = 4000, 32
+    rows = np.zeros((10, n), np.float32)
+    rows[0:2] = rng.uniform(-4, 36, (2, n))
+    sig = rng.uniform(2.0, 12.0, n)
+    rows[2] = 1.0 / sig ** 2
+    rows[3] = rng.uniform(-0.2, 0.2, n) / sig ** 2
+    rows[4] = 1.0 / sig ** 2
+    rows[5] = rng.uniform(0.004, 0.03, n)
+    rows[6:9] = rng.uniform(0, 1, (3, n))
+    rows[9] = np.sort(rng.uniform(1, 10, n))
+    attr = torch.as_tensor(rows, device=dev)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    cnt = torch.full((1,), n, dtype=torch.int32, device=dev)
+    bg = torch.tensor([0.2, 0.5, 1.0], device=dev)
+    f = tile_kernels.forward_tiles(attr, start, cnt, bg, tile, tile, tile,
+                                   tile, 128, need_aux=True)
+    assert int(f.n_contrib.max()) > 2 * tile_kernels.BACKWARD_CHUNK
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    d_color = torch.randn(3, tile, tile, generator=gen).to(dev)
+    args = (attr, start, cnt, bg, f.n_contrib, f.color, f.final_t, d_color,
+            tile, tile, tile, tile)
     tile_kernels.reset_launches()
-    k = grid_scatter.scatter_taps(cells, weights, dfeat, total)
-    k2 = grid_scatter.scatter_taps(cells.int(), weights, dfeat, total)
+    k = tile_kernels.backward_tiles(*args)
+    k2 = tile_kernels.backward_tiles(*args)
+    torch.cuda.synchronize()
+    assert tile_kernels.launches["backward"] == 2
+    assert torch.equal(k, k2)
+    p = compositing.backward_tiles(*args)
+    for r in range(9):
+        scale = p[r].abs().max().item()
+        assert scale > 0
+        assert (k[r] - p[r]).abs().max().item() <= 1e-5 * scale, r
+        assert ((k[r] - p[r]).norm() / p[r].norm()).item() <= 1e-5, r
+    assert not k[:, (p == 0).all(0)].any()
+
+
+# border points of tests/test_torch_grid_scatter.py's sample_mip test
+_BORDER = [[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.0], [0.999, 0.5],
+           [0.5, 0.001], [0.015, 0.985], [0.5, 0.5]]
+
+
+@pytest.mark.parametrize("n_pts,h,w,n_levels,c", [
+    (20000, 128, 128, 7, 32), (3000, 50, 128, 0, 32), (500, 24, 40, 3, 16),
+    (50, 16, 16, 4, 70)])
+def test_scatter_kernel_matches_plain(dev, n_pts, h, w, n_levels, c):
+    """K4 (scatter_mip_taps) against its plain version on the CPU: random
+    coords and levels with the border points, 0- and 7-level planes, a
+    pyramid whose cell count is no power of two, strided dfeat rows: 1e-5
+    of the output's largest entry, two launches equal to the bit."""
+    rng = np.random.RandomState(0)
+    coords = rng.rand(n_pts, 2).astype(np.float32)
+    coords[:8] = _BORDER
+    level = (rng.rand(n_pts) * (n_levels + 1) - 0.5).astype(np.float32)
+    wide = rng.randn(n_pts, 2 * c).astype(np.float32)
+    args = [torch.as_tensor(coords), torch.as_tensor(level),
+            torch.as_tensor(wide)[:, :c]]
+    tile_kernels.reset_launches()
+    k = grid_scatter.scatter_mip_taps(*[x.to(dev) for x in args], h, w,
+                                      n_levels)
+    k2 = grid_scatter.scatter_mip_taps(
+        *[x.to(dev).contiguous() for x in args], h, w, n_levels)
     torch.cuda.synchronize()
     assert tile_kernels.launches["grid_scatter"] == 2
     assert torch.equal(k, k2)
-    p = grid_scatter.scatter_taps_plain(cells.cpu(), weights.cpu(),
-                                        dfeat.cpu(), total)
-    assert k.shape == p.shape == (c, total)
+    p = grid_scatter.scatter_mip_taps_plain(*args, h, w, n_levels)
+    assert k.shape == p.shape
     assert (k.cpu() - p).abs().max().item() <= 1e-5 * p.abs().max().item()
 
 
 def test_scatter_kernel_hot_cell(dev):
-    """Every tap on one texel: one warp's long walk stays exact."""
+    """Every tap on the coarsest texel of a 7-level pyramid: the segment is
+    cut into pieces whose partials are summed in piece order."""
     rng = np.random.RandomState(1)
-    n_pts, total, c = 3000, 1024, 8
-    cells = torch.full((4, n_pts), 37, dtype=torch.int64, device=dev)
-    weights = torch.as_tensor(rng.rand(4, n_pts).astype(np.float32)).to(dev)
-    dfeat = torch.as_tensor(rng.randn(n_pts, c).astype(np.float32)).to(dev)
-    k = grid_scatter.scatter_taps(cells, weights, dfeat, total).cpu()
-    p = grid_scatter.scatter_taps_plain(cells.cpu(), weights.cpu(),
-                                        dfeat.cpu(), total)
-    # the CPU's index_add_ walks the taps in the kernel's order
-    assert torch.equal(k, p)
-    assert not k[:, :37].any() and not k[:, 38:].any()
+    n_pts, c = 30000, 8
+    coords = torch.full((n_pts, 2), 0.3)
+    level = torch.full((n_pts,), 7.0)
+    dfeat = torch.as_tensor(rng.randn(n_pts, c).astype(np.float32))
+    tile_kernels.reset_launches()
+    k = grid_scatter.scatter_mip_taps(coords.to(dev), level.to(dev),
+                                      dfeat.to(dev), 128, 128, 7)
+    k2 = grid_scatter.scatter_mip_taps(coords.to(dev), level.to(dev),
+                                       dfeat.to(dev), 128, 128, 7)
+    torch.cuda.synchronize()
+    assert tile_kernels.launches["grid_scatter"] == 2
+    assert torch.equal(k, k2)
+    p = grid_scatter.scatter_mip_taps_plain(coords, level, dfeat, 128, 128,
+                                            7)
+    k = k.cpu()
+    assert (k - p).abs().max().item() <= 1e-5 * p.abs().max().item()
+    assert not k[:, :-1].any()
 
 
 def test_rasterize_gradients_cuda_match_cpu(dev):
@@ -330,7 +394,7 @@ def test_train_step_cuda_matches_cpu(dev):
             assert tile_kernels.launches == {"expand": batch,
                                              "forward": batch,
                                              "backward": batch,
-                                             "grid_scatter": 9}
+                                             "grid_scatter": 6}
         results.append((m, [x.cpu() for x in new.opt.mu],
                         [x.detach().cpu() for x in step_mod.param_leaves(
                             new.points, new.nets)]))

@@ -31,21 +31,41 @@ def test_plain_scatter_matches_jax(rng, n_pts, total, c):
     cells, weights, dfeat = _random_taps(rng, n_pts, total, c)
     jargs = (jnp.asarray(cells), jnp.asarray(weights), jnp.asarray(dfeat),
              total)
-    b = n(tgs.scatter_taps(t(cells), t(weights), t(dfeat), total))
+    b = n(tgs.scatter_taps_plain(t(cells), t(weights), t(dfeat), total))
     assert b.shape == (c, total)
     np.testing.assert_allclose(b, n(jgs.scatter_taps_xla(*jargs)),
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(b, n(jgs.scatter_taps_pallas(*jargs)),
                                rtol=1e-5, atol=1e-5)
-    # the kernel's sorted inputs: every cell's segment holds its taps in
-    # tap-major, point-minor order
-    seg, point, weight = tgs.sort_taps(t(cells), t(weights), total)
+    # the kernel's sort of these taps: every cell's segment holds its taps
+    # in tap-major, point-minor order
+    order, seg = tgs.sort_keys_plain(t(cells), total)
     assert int(seg[0]) == 0 and int(seg[-1]) == 4 * n_pts
     cell = 7 + int(cells[0, 0])
     s, e = int(seg[cell]), int(seg[cell + 1])
     taps, pts = np.nonzero(cells == cell)
-    np.testing.assert_array_equal(n(point[s:e]), pts)
-    np.testing.assert_array_equal(n(weight[s:e]), weights[taps, pts])
+    np.testing.assert_array_equal(n(order[s:e]), taps * n_pts + pts)
+
+
+@pytest.mark.parametrize("kind,n_keys,total", [
+    ("random", 5000, 21845), ("duplicates", 7001, 300),
+    ("hot", 4500, 6400), ("one pass", 3000, 256)])
+def test_sort_twin_matches_stable_argsort(rng, kind, n_keys, total):
+    """The plain twin of K4's radix sort (per-block counts, their scan,
+    the stable placement) against numpy's stable argsort, with segment
+    bounds as searchsorted gives them."""
+    if kind == "duplicates":
+        keys = rng.randint(0, 5, n_keys) * 61
+    elif kind == "hot":
+        keys = np.full(n_keys, total - 1)
+        keys[::97] = rng.randint(0, total, keys[::97].shape)
+    else:
+        keys = rng.randint(0, total, n_keys)
+    assert tgs.radix_passes(total) == (1 if total <= 256 else 2)
+    order, seg = tgs.sort_keys_plain(torch.as_tensor(keys), total)
+    np.testing.assert_array_equal(n(order), np.argsort(keys, kind="stable"))
+    np.testing.assert_array_equal(
+        n(seg), np.searchsorted(np.sort(keys), np.arange(total + 1)))
 
 
 def test_plain_scatter_hot_cell(rng):
@@ -56,7 +76,7 @@ def test_plain_scatter_hot_cell(rng):
     dfeat = rng.randn(n_pts, c).astype(np.float32)
     a = n(jgs.scatter_taps_xla(jnp.asarray(cells), jnp.asarray(weights),
                                jnp.asarray(dfeat), total))
-    b = n(tgs.scatter_taps(t(cells), t(weights), t(dfeat), total))
+    b = n(tgs.scatter_taps_plain(t(cells), t(weights), t(dfeat), total))
     np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-3)
     assert not b[:, :37].any() and not b[:, 38:].any()
 
@@ -93,6 +113,40 @@ def test_sample_mip_grid_gradient_matches_jax(rng, monkeypatch, max_level):
     assert np.abs(g_custom - g_auto).max() / scale < 1e-5
     assert torch.equal(out_c, out_a)          # the forward is unchanged
     assert g_coords is None                   # coords carry no gradient
+
+
+@pytest.mark.parametrize("h,w,n_levels", [(32, 64, 5), (50, 128, 0)])
+def test_mip_taps_fold_both_brackets(rng, h, w, n_levels):
+    """The entry point's plain version (both brackets' taps, the bracket
+    factor folded into the weight, one scatter) against one scatter per
+    bracket of the factored cotangent, as the grid gradient was built
+    before: 1e-5 of the largest entry."""
+    n_pts, c = 700, 8
+    coords = rng.rand(n_pts, 2).astype(np.float32)
+    coords[:4] = [[0.0, 0.0], [1.0, 1.0], [0.999, 0.001], [0.5, 0.5]]
+    level = (rng.rand(n_pts) * (n_levels + 1) - 0.5).astype(np.float32)
+    dfeat = rng.randn(n_pts, c).astype(np.float32)
+    got = tgs.scatter_mip_taps(t(coords), t(level), t(dfeat), h, w,
+                               n_levels)
+    u, v = t(coords[:, 0]), t(coords[:, 1])
+    if n_levels == 0:
+        cells, wts = tgs.tap_cells_weights(u, v, w, h, 0)
+        want = tgs.scatter_taps_plain(cells, wts, t(dfeat), h * w)
+    else:
+        lvl = torch.clamp(t(level), 0.0, float(n_levels))
+        l0 = torch.clamp(torch.floor(lvl).long(), 0, n_levels)
+        l1 = torch.clamp(l0 + 1, 0, n_levels)
+        frac = lvl - l0
+        sizes, offs = tgs.level_sizes(h, w, n_levels)
+        want = 0
+        for l, fac in ((l0, 1.0 - frac), (l1, frac)):
+            cells, wts = tgs.tap_cells_weights(
+                u, v, torch.full_like(l, w) >> l, torch.full_like(l, h) >> l,
+                torch.as_tensor(offs[:-1])[l])
+            want = want + tgs.scatter_taps_plain(
+                cells, wts, t(dfeat) * fac[:, None], int(offs[-1]))
+    assert got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 def test_field_features_gradient_matches_jax(rng, monkeypatch):

@@ -91,11 +91,35 @@ def test_rasterize_refuses_gradients():
     assert means.grad is not None and torch.isfinite(means.grad).all()
 
 
+_INT_TYPES = r"(?:int|unsigned|unsigned int|long long|unsigned long long)"
+
+
+def _float_atomics(src: str):
+    """Atomic calls in ``src`` that may add floats or place by atomic
+    order: any atomicExch/atomicCAS, and any other atomic whose target is
+    not declared with an integer type in the same source."""
+    bad = []
+    for m in re.finditer(r"\batomic(\w+)\s*\(\s*&?\s*(\w+)", src):
+        op, target = m.groups()
+        declared_int = re.search(
+            rf"\b{_INT_TYPES}\s+(?:\*\s*)?{target}\b", src)
+        if op in ("Exch", "CAS") or not declared_int:
+            bad.append(m.group(0))
+    return bad
+
+
 def test_kernels_use_no_atomics_and_wrappers_do_not_fall_back():
-    """The backward kernels sum in a fixed order (no atomicAdd), share the
-    forward's alpha chain through one header, and every wrapper sends a
-    CUDA tensor to its kernel: without a card that raises, it does not
-    quietly take the plain version."""
+    """The kernels sum floats in a fixed order: integer atomics may count,
+    but no atomic adds a float and none places by atomic order.  The
+    backward compositor shares the forward's alpha chain through one
+    header, and every wrapper sends a CUDA tensor to its kernel: without a
+    card that raises, it does not quietly take the plain version."""
+    # the check itself: a float sum and an atomic placement are caught, an
+    # integer count is not
+    assert _float_atomics("float acc[4]; atomicAdd(&acc[0], v);")
+    assert _float_atomics("int slot; p[atomicExch(&slot, 1)] = v;")
+    assert not _float_atomics("__shared__ int hist[256];\n"
+                              "atomicAdd(&hist[d], 1);")
     csrc = os.path.join(PKG, "csrc")
     code = {}
     for f in os.listdir(csrc):
@@ -105,7 +129,7 @@ def test_kernels_use_no_atomics_and_wrappers_do_not_fall_back():
     assert {"forward.cu", "backward.cu", "expand.cu", "grid_scatter.cu",
             "alpha_chain.cuh"} <= set(code)
     for f, src in code.items():
-        assert "atomic" not in src, f
+        assert not _float_atomics(src), (f, _float_atomics(src))
     for f in ("forward.cu", "backward.cu"):
         assert '#include "alpha_chain.cuh"' in code[f]
         assert "eval_alpha(" in code[f] and "expf" not in code[f], f
