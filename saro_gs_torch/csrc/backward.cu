@@ -34,14 +34,11 @@
 //    through distributed shared memory, so a heavy tile's walk is spread
 //    over the cluster's SMs with no scratch in device memory;
 //  * a warp owns a compact 8x4-pixel patch and skips every instance that
-//    cannot reach any pixel of it: alpha <= opacity * exp(-0.5 *
-//    lambda_min * d^2), d the distance from the splat's mean to the patch,
-//    is below 1/255, or the patch lies outside the box of the ellipse
-//    where alpha can reach 1/255, each by a margin that covers the
-//    rounding of power, lambda_min and the determinant (so eval_alpha
-//    would refuse every pixel: the cull changes no bit of the output).
-//    The lanes test 32 instances at once and the warp walks only the set
-//    bits of the ballot;
+//    cannot reach any pixel of it (alpha_chain.cuh:warp_may_reach, shared
+//    with the forward: by lambda_min and by the ellipse's box, with margins
+//    for the rounding, so the cull changes no bit of the output).  The
+//    lanes test 32 instances at once and the warp walks only the set bits
+//    of the ballot;
 //  * a warp replays the instances it keeps two at a time (their alpha
 //    evaluations and gradient arithmetic are independent: the walk's
 //    chain is the pair's, not each instance's) and sums the pair's 18
@@ -52,9 +49,10 @@
 //  * a warp stops evaluating past its own largest live n_contrib;
 //  * batches of 128 instances, staged with cp.async into a second buffer
 //    while the current one is replayed; 64 registers, so 32 warps an SM;
-//  * the wrapper launches the tiles heaviest first (by the tile's replay
-//    bound), so the longest clusters start in the first wave; the order of
-//    every sum is fixed inside a cluster, so the bits do not depend on it.
+//  * the tiles launch in the order binning computes for K1 too (heaviest
+//    tile_count first), so the longest clusters start in the first wave;
+//    the order of every sum is fixed inside a cluster, so the bits do not
+//    depend on it.
 // What holds it still: the warps of a cluster meet after every batch, so a
 // batch takes its busiest warp's time (a patch under a dense splat), and a
 // contributing pair costs some 70 instructions besides its 20 flops of
@@ -281,52 +279,11 @@ backward_kernel(const int* __restrict__ order, const int* __restrict__ bound,
     for (int i = lane; i < nb * kGrad; i += 32) my_part[i] = 0.0f;
     __syncwarp();
     for (int g = 0; g < wl; g += 32) {
-      // lane i asks whether instance g + i can reach the warp's patch:
-      // alpha < 1/255 at every pixel when 0.5 * lambda * d^2 (which bounds
-      // -power from below) clears ln(opacity * 255) by a margin covering
-      // power's rounding at the farthest pixel ((d + diag)^2 <= 2 d^2 + 2
-      // diag^2), expf's and logf's, and this sum's own.  No NaN passes: a
-      // comparison with NaN is false, so such an instance is replayed.
-      bool reach = false;
+      // lane i asks whether instance g + i can reach the warp's patch
+      // (alpha_chain.cuh, the test the forward culls by)
       const int jl = g + lane;
-      if (jl < wl) {
-        const float mx = sh[jl];
-        const float my = sh[chunk + jl];
-        const float ca = sh[2 * chunk + jl];
-        const float cb = sh[3 * chunk + jl];
-        const float cc = sh[4 * chunk + jl];
-        const float op = sh[5 * chunk + jl];
-        // lambda_min less its rounding (an indefinite conic bounds
-        // nothing: 0 leaves only the opacity test), and the weight of
-        // power's rounding
-        const float mag = fabsf(ca) + fabsf(cc) + 2.0f * fabsf(cb);
-        const float dd = ca - cc;
-        const float lam = fmaxf(
-            0.5f * (ca + cc) - sqrtf(0.25f * (dd * dd) + cb * cb)
-                - 1e-6f * mag, 0.0f);
-        const float ddx = fmaxf(fmaxf(wx0 - mx, mx - wx1), 0.0f);
-        const float ddy = fmaxf(fmaxf(wy0 - my, my - wy1), 0.0f);
-        const float dist2 = ddx * ddx + ddy * ddy;
-        const float a = 0.5f * lam * dist2;
-        const float m = 1e-6f * mag * (2.0f * dist2 + 2.0f * diag2);
-        const float thr = logf(op / saro::kAlphaMin);
-        bool far = a - m - 1e-3f - 1e-5f * (a + m) > thr;
-        // the ellipse's bounding box: a pixel that passes has computed
-        // power >= -(thr + 1e-3), and power's rounding is at most eps of
-        // |power| (eps = 2e-6 * mag / lambda), so q^T A q <= 2 (thr +
-        // 1e-3) / (1 - eps); its box is |q_x| <= sqrt(that * cc / det),
-        // |q_y| <= sqrt(that * ca / det), det taken below its rounding
-        const float eps = 2e-6f * mag / lam;
-        if (!far && lam > 0.0f && eps < 0.5f && thr > 0.0f) {
-          const float t2 = 2.0f * (thr + 1e-3f) / (1.0f - eps) * 1.00001f;
-          const float det = ca * cc - cb * cb
-                            - 4e-7f * (fabsf(ca * cc) + cb * cb);
-          if (det > 0.0f)
-            far = ddx > sqrtf(t2 * cc / det) * 1.00001f + 1e-3f ||
-                  ddy > sqrtf(t2 * ca / det) * 1.00001f + 1e-3f;
-        }
-        reach = !far;
-      }
+      const bool reach = jl < wl && saro::warp_may_reach(
+          sh, chunk, jl, wx0, wx1, wy0, wy1, diag2);
       // the live instances two at a time: their alpha evaluations and
       // gradient arithmetic are independent, and one reduce serves both
       for (unsigned live = __ballot_sync(kFull, reach); live != 0u;) {

@@ -5,21 +5,25 @@
 // saro_gs_tpu/ops/binning.py:bin_gaussians_staged with expander="pallas").
 // The TPU version compacts the kept Gaussians with a sort and then spreads
 // each Gaussian's attribute row to its slots as a windowed one-hot matmul,
-// because a TPU scatter serializes.  On Hopper a scatter is cheap, so this
-// kernel runs one thread per Gaussian: thread g walks the slots it owns,
-// [offsets[g], offsets[g] + tiles[g]) clipped to n_inst, in the JAX
-// package's emission order (local slot l covers tile rmin_x + l % rw,
-// rmin_y + l / rw, binning.py:405-408), applies the corner cull
-// (binning.py:410-429) and writes the slot's sort key, Gaussian id and
-// attribute payload.  Culled and zero-tile Gaussians own no slots.
+// because a TPU scatter serializes.  What it computes is kept: slot s
+// belongs to the LAST Gaussian g with offsets[g] <= s (offsets = exclusive
+// cumsum of tiles_touched; a zero-tile Gaussian ties with its successor
+// and is never the owner), and covers tile (rmin_x + l % rw,
+// rmin_y + l / rw), l = s - offsets[g], in the JAX package's emission order
+// (binning.py:405-408), with the corner cull (binning.py:410-429).
 //
-// Bound on H100: memory.  It reads 16 words per Gaussian and writes about
-// 13 words per instance ((N*16 + MI*13)*4 bytes at 3.35 TB/s); the corner
-// cull is a few tens of flops per instance.  The design keeps each
-// Gaussian's payload in registers and writes every slot exactly once; the
-// writes of neighbouring threads are not coalesced (each thread writes its
-// own run of slots), which a later version can fix with one thread per
-// slot and a binary search for the owner.
+// Bound on H100: memory.  It reads 16 words per Gaussian and writes 13
+// words per instance ((N*16 + MI*13)*4 bytes at 3.35 TB/s); the corner
+// cull is a few tens of flops per instance.  One thread runs per slot, so
+// consecutive threads write consecutive slots of every output (coalesced)
+// and a splat that covers hundreds of tiles holds no warp (as one thread
+// per Gaussian, writing its whole run, would).  A thread finds its slot's
+// owner by binary search: two threads of the block first search the whole
+// of offsets for the owners of the block's first and last slots, and
+// every thread then searches only between those two (a window of some
+// tens of Gaussians, cached in L1).  The lanes of a warp mostly share an
+// owner, so its payload loads are broadcasts.  What holds it still: the
+// two dependent searches before any write.
 //
 // Sort key: tile << 32 | bits(depth).  Valid depths are > 0.2 (the near
 // cull), so their bits order like their values, and one stable sort of the
@@ -47,22 +51,48 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return a > b ? a : b;
 }
 
-__global__ void expand_kernel(const int* __restrict__ offsets,
-                              const int* __restrict__ tiles,
-                              const int* __restrict__ rect,
-                              const float* __restrict__ gattr, int n,
-                              int n_inst, int grid_x, int grid_y, int tile_x,
-                              int tile_y, int corner_cull,
-                              long long* __restrict__ keys,
-                              int* __restrict__ gid_out,
-                              float* __restrict__ attr) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const int off = offsets[g];
-  int cnt = tiles[g];
-  // culled Gaussians (tiles_touched 0) and those past capacity own nothing
-  if (cnt <= 0 || off >= n_inst) return;
-  cnt = min(cnt, n_inst - off);   // capacity: slots >= n_inst are dropped
+constexpr int kThreads = 256;
+
+// The last g in [lo, hi) with offsets[g] <= s, given offsets[lo] <= s and
+// offsets non-decreasing.
+__device__ __forceinline__ int owner_of(const int* __restrict__ offsets,
+                                        int lo, int hi, int s) {
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (offsets[mid] <= s) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads)
+expand_kernel(const int* __restrict__ offsets, const int* __restrict__ tiles,
+              const int* __restrict__ rect, const float* __restrict__ gattr,
+              int n, int n_inst, int grid_x, int grid_y, int tile_x,
+              int tile_y, int corner_cull, long long* __restrict__ keys,
+              int* __restrict__ gid_out, float* __restrict__ attr) {
+  // the owners of the block's first and last slots bound every owner of
+  // the block's slots
+  __shared__ int window[2];
+  const int s_first = blockIdx.x * kThreads;
+  if (threadIdx.x < 2) {
+    const int s_edge = threadIdx.x == 0
+        ? s_first : min(s_first + kThreads, n_inst) - 1;
+    window[threadIdx.x] = owner_of(offsets, 0, n, s_edge);
+  }
+  __syncthreads();
+  const int s = s_first + threadIdx.x;
+  if (s >= n_inst) return;
+  const int g = owner_of(offsets, window[0], window[1] + 1, s);
+  const int l = s - offsets[g];
+  const long long sentinel = (long long)grid_x * grid_y << 32;
+  // slots past the last run (n_inst > the instance total) own nothing
+  if (l >= tiles[g]) {
+    keys[s] = sentinel;
+    gid_out[s] = -1;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) attr[(size_t)r * n_inst + s] = 0.0f;
+    return;
+  }
 
   const int rmin_x = rect[g];
   const int rmin_y = rect[n + g];
@@ -70,63 +100,55 @@ __global__ void expand_kernel(const int* __restrict__ offsets,
   float v[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) v[r] = gattr[(size_t)r * n + g];
-  const float mx = v[0], my = v[1], ca = v[2], cb = v[3], cc = v[4];
-  const float op = v[kRowOpacity];
-  const unsigned long long depth_bits = __float_as_uint(v[kRowDepth]);
-  const long long sentinel = (long long)grid_x * grid_y << 32;
-
-  // lam_min of the conic, per Gaussian (same for all its slots):
-  // 0.5 (ca + cc) - sqrt(0.25 (ca - cc)^2 + cb^2 + 1e-20)
-  const float d = ca - cc;
-  const float lam_min = 0.5f * (ca + cc) -
-                        sqrtf((float)0.25 * (d * d) + cb * cb + (float)1e-20);
-  const float lam_pos = max_nan(lam_min, 0.0f);
-  const float alpha_min = (float)(1.0 / 255.0);
-
-  for (int l = 0; l < cnt; ++l) {
-    const int s = off + l;
-    const int tx = rmin_x + l % rw;
-    const int ty = rmin_y + l / rw;
-    bool valid = true;
-    if (corner_cull) {
-      // largest alpha over the tile's pixels bounded through the distance
-      // from the mean to the tile's pixel rect
-      const float px0 = (float)(tx * tile_x);
-      const float py0 = (float)(ty * tile_y);
-      const float ddx =
-          max_nan(max_nan(px0 - mx, mx - (px0 + (float)tile_x - 1.0f)), 0.0f);
-      const float ddy =
-          max_nan(max_nan(py0 - my, my - (py0 + (float)tile_y - 1.0f)), 0.0f);
-      const float power_bound = -0.5f * lam_pos * (ddx * ddx + ddy * ddy);
-      valid = op * expf(power_bound) >= alpha_min;
-    }
-    if (valid) {
-      keys[s] = ((long long)(ty * grid_x + tx) << 32) | (long long)depth_bits;
-      gid_out[s] = g;
+  const int tx = rmin_x + l % rw;
+  const int ty = rmin_y + l / rw;
+  bool valid = true;
+  if (corner_cull) {
+    const float mx = v[0], my = v[1], ca = v[2], cb = v[3], cc = v[4];
+    // lam_min of the conic:
+    // 0.5 (ca + cc) - sqrt(0.25 (ca - cc)^2 + cb^2 + 1e-20)
+    const float d = ca - cc;
+    const float lam_min = 0.5f * (ca + cc) -
+                          sqrtf((float)0.25 * (d * d) + cb * cb + (float)1e-20);
+    const float lam_pos = max_nan(lam_min, 0.0f);
+    // largest alpha over the tile's pixels bounded through the distance
+    // from the mean to the tile's pixel rect
+    const float px0 = (float)(tx * tile_x);
+    const float py0 = (float)(ty * tile_y);
+    const float ddx =
+        max_nan(max_nan(px0 - mx, mx - (px0 + (float)tile_x - 1.0f)), 0.0f);
+    const float ddy =
+        max_nan(max_nan(py0 - my, my - (py0 + (float)tile_y - 1.0f)), 0.0f);
+    const float power_bound = -0.5f * lam_pos * (ddx * ddx + ddy * ddy);
+    valid = v[kRowOpacity] * expf(power_bound) >= (float)(1.0 / 255.0);
+  }
+  if (valid) {
+    const unsigned long long depth_bits = __float_as_uint(v[kRowDepth]);
+    keys[s] = ((long long)(ty * grid_x + tx) << 32) | (long long)depth_bits;
+    gid_out[s] = g;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) attr[(size_t)r * n_inst + s] = v[r];
-    } else {
-      keys[s] = sentinel;
-      gid_out[s] = -1;
+    for (int r = 0; r < kRows; ++r) attr[(size_t)r * n_inst + s] = v[r];
+  } else {
+    keys[s] = sentinel;
+    gid_out[s] = -1;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) attr[(size_t)r * n_inst + s] = 0.0f;
-    }
+    for (int r = 0; r < kRows; ++r) attr[(size_t)r * n_inst + s] = 0.0f;
   }
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = success).
+// Returns the cudaError_t of the launch (0 = success).  One thread per
+// slot; offsets is the exclusive cumsum of tiles and n_inst <= its total.
 extern "C" int saro_expand_instances(const void* offsets, const void* tiles,
                                      const void* rect, const void* gattr,
                                      int n, int n_inst, int grid_x,
                                      int grid_y, int tile_x, int tile_y,
                                      int corner_cull, void* keys, void* gid,
                                      void* attr, void* stream) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  if (blocks == 0) return 0;
-  expand_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n_inst + kThreads - 1) / kThreads;
+  if (blocks == 0 || n == 0) return 0;
+  expand_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)offsets, (const int*)tiles, (const int*)rect,
       (const float*)gattr, n, n_inst, grid_x, grid_y, tile_x, tile_y,
       corner_cull, (long long*)keys, (int*)gid, (float*)attr);

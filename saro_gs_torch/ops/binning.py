@@ -34,6 +34,8 @@ class StagedBins(NamedTuple):
     # Gaussian's tiles_touched: what reduce_instances needs
     perm: torch.Tensor        # [L] int64
     tiles: torch.Tensor       # [N] int32
+    # the compositors' launch order (K1 and K3): heaviest tile first
+    tile_order: torch.Tensor  # [NT] int32, tile_kernels.heaviest_first
 
 
 def _finite(x: torch.Tensor) -> torch.Tensor:
@@ -100,7 +102,8 @@ def bin_gaussians_staged(pre: PreprocessOut, opacity: torch.Tensor,
     return StagedBins(attr=attr, ids=ids, tile_start=start,
                       tile_count=count, num_instances=n_inst,
                       num_dropped=n_drop, perm=perm,
-                      tiles=pre.tiles_touched.to(torch.int32))
+                      tiles=pre.tiles_touched.to(torch.int32),
+                      tile_order=tile_kernels.heaviest_first(count))
 
 
 def reduce_instances(rows: torch.Tensor, perm: torch.Tensor,

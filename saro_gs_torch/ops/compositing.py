@@ -20,6 +20,10 @@ keeps the reference's per-pixel semantics (forward.cu:261-393):
 Its arithmetic is written in the kernel's order, so on the card the two
 agree to the last bit where both round the same.
 
+``warp_may_reach`` restates the cull by which both kernels skip the
+instances that cannot reach a warp's pixels (csrc/alpha_chain.cuh); the
+plain walks need no cull, so it serves the tests and the cull's count.
+
 ``backward_tiles`` replays that walk front to back and gives the
 per-instance gradients [9, L] of the colour image (the depth output has no
 backward, as in the reference): the colour behind instance k comes from
@@ -57,6 +61,86 @@ class ForwardTilesOut(NamedTuple):
     # plain version only: instances each pixel evaluated before its walk
     # stopped (the work the data needed); None from the kernel
     n_walked: Optional[torch.Tensor] = None
+
+
+def warp_may_reach(rows, wx0, wx1, wy0, wy1):
+    """Plain restatement of csrc/alpha_chain.cuh's warp cull (reach_terms,
+    then reaches_box), in its order of operations: False only where the
+    instance with staged rows ``rows`` (x, y, conic a/b/c, opacity, ...;
+    each a tensor) counts at no pixel of the box [wx0, wx1] x [wy0, wy1]
+    (float32 tensors that broadcast against the rows).  ``torch.fmax`` is
+    the kernel's fmaxf: it drops a NaN operand."""
+    mx, my, ca, cb, cc, op = rows[:6]
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=mx.device)
+    # reach_terms: what does not depend on the box
+    mag = ca.abs() + cc.abs() + 2.0 * cb.abs()
+    dd = ca - cc
+    lam = torch.fmax(0.5 * (ca + cc) - torch.sqrt(0.25 * (dd * dd) + cb * cb)
+                     - 1e-6 * mag, zero)
+    thr = torch.log(op / torch.tensor(ALPHA_MIN, dtype=f32))
+    eps = 2e-6 * mag / lam
+    t2 = 2.0 * (thr + 1e-3) / (1.0 - eps) * 1.00001
+    det = ca * cc - cb * cb - 4e-7 * ((ca * cc).abs() + cb * cb)
+    boxed = (lam > 0.0) & (eps < 0.5) & (thr > 0.0) & (det > 0.0)
+    inf = torch.full((), float("inf"), dtype=f32, device=mx.device)
+    hx = torch.where(boxed, torch.sqrt(t2 * cc / det) * 1.00001 + 1e-3, inf)
+    hy = torch.where(boxed, torch.sqrt(t2 * ca / det) * 1.00001 + 1e-3, inf)
+    # reaches_box
+    diag2 = (wx1 - wx0) * (wx1 - wx0) + (wy1 - wy0) * (wy1 - wy0)
+    ddx = torch.fmax(torch.fmax(wx0 - mx, mx - wx1), zero)
+    ddy = torch.fmax(torch.fmax(wy0 - my, my - wy1), zero)
+    dist2 = ddx * ddx + ddy * ddy
+    a = 0.5 * lam * dist2
+    m = 1e-6 * mag * (2.0 * dist2 + 2.0 * diag2)
+    far = a - m - 1e-3 - 1e-5 * (a + m) > thr
+    return ~(far | (ddx > hx) | (ddy > hy))
+
+
+def patch_boxes(tile_ids: torch.Tensor, width: int, height: int,
+                tile_x: int, tile_y: int):
+    """The 8x4-pixel warp patches of the given tiles, as the kernels lay
+    them out (tile_x a multiple of 8, tile_y of 4): the box of each
+    patch's pixels inside the image, (x0, x1, y0, y1) float32 [T, Q], and
+    whether the patch has such a pixel."""
+    if tile_x % 8 or tile_y % 4:
+        raise ValueError(f"tile {tile_x}x{tile_y}: 8x4 patches need a "
+                         "width that is a multiple of 8 and a height that "
+                         "is a multiple of 4")
+    grid_x = (width + tile_x - 1) // tile_x
+    q = torch.arange((tile_x // 8) * (tile_y // 4), device=tile_ids.device)
+    x0 = ((tile_ids % grid_x) * tile_x)[:, None] + (q % (tile_x // 8)) * 8
+    y0 = ((tile_ids // grid_x) * tile_y)[:, None] + (q // (tile_x // 8)) * 4
+    x1 = torch.clamp(x0 + 7, max=width - 1)
+    y1 = torch.clamp(y0 + 3, max=height - 1)
+    ok = (x0 < width) & (y0 < height)
+    f32 = torch.float32
+    return (x0.to(f32), x1.to(f32), y0.to(f32), y1.to(f32)), ok
+
+
+def cull_counts(attr: torch.Tensor, tile_start: torch.Tensor,
+                tile_count: torch.Tensor, width: int, height: int,
+                tile_x: int, tile_y: int, slots_per_pass: int = 1 << 16):
+    """(pairs, kept): the (8x4 patch, instance) pairs of every tile's range
+    whose patch has a pixel in the image, and how many of them the warp
+    cull keeps (``warp_may_reach`` on each patch's whole box)."""
+    dev = attr.device
+    nt = tile_count.shape[0]
+    tile_of = torch.repeat_interleave(torch.arange(nt, device=dev),
+                                      tile_count.long())
+    slot = torch.arange(tile_of.shape[0], device=dev) \
+        - (torch.cumsum(tile_count.long(), 0) - tile_count.long())[tile_of] \
+        + tile_start.long()[tile_of]
+    pairs = kept = 0
+    for i in range(0, tile_of.shape[0], slots_per_pass):
+        tids = tile_of[i:i + slots_per_pass]
+        (x0, x1, y0, y1), ok = patch_boxes(tids, width, height, tile_x,
+                                           tile_y)
+        rows = attr[:6, slot[i:i + slots_per_pass]][:, :, None]
+        reach = warp_may_reach(rows, x0, x1, y0, y1)
+        pairs += int(ok.sum())
+        kept += int((reach & ok).sum())
+    return pairs, kept
 
 
 def tile_pixel_coords(tile_ids: torch.Tensor, grid_x: int, tile_x: int,

@@ -105,7 +105,8 @@ class _Rasterize(torch.autograd.Function):
         bg = bg.to(torch.float32).contiguous()
         fwd = tile_kernels.forward_tiles(
             bins.attr, bins.tile_start, bins.tile_count, bg, width, height,
-            cfg.tile_x, cfg.tile_y, cfg.chunk, need_aux=cfg.need_aux)
+            cfg.tile_x, cfg.tile_y, cfg.chunk, need_aux=cfg.need_aux,
+            tile_order=bins.tile_order)
         timing.mark("K1_forward")
         info["num_dropped"] = bins.num_dropped
         info["num_instances"] = bins.num_instances
@@ -117,8 +118,8 @@ class _Rasterize(torch.autograd.Function):
             means3d, scales, quats, opacities,
             shs if colors_precomp is None else colors_precomp,
             pre.mask, pre.clamped, bins.attr, bins.tile_start,
-            bins.tile_count, bins.perm, bins.tiles, fwd.color, fwd.final_t,
-            fwd.n_contrib)
+            bins.tile_count, bins.perm, bins.tiles, bins.tile_order,
+            fwd.color, fwd.final_t, fwd.n_contrib)
         ctx.mark_non_differentiable(fwd.depth, pre.radii, fwd.final_t,
                                     fwd.n_contrib)
         return fwd.color, fwd.depth, pre.radii, fwd.final_t, fwd.n_contrib
@@ -128,7 +129,7 @@ class _Rasterize(torch.autograd.Function):
         width, height, sh_degree, cfg = ctx.statics
         cam = ctx.cam
         (means3d, scales, quats, opacities, colour_in, mask, clamped, attr,
-         tile_start, tile_count, perm, tiles, color, final_t,
+         tile_start, tile_count, perm, tiles, tile_order, color, final_t,
          n_contrib) = ctx.saved_tensors
         dt = means3d.dtype
         timing.mark("loss_backward")
@@ -136,7 +137,7 @@ class _Rasterize(torch.autograd.Function):
         g9 = tile_kernels.backward_tiles(
             attr, tile_start, tile_count, ctx.bg, n_contrib, color, final_t,
             d_color.to(torch.float32).contiguous(), width, height,
-            cfg.tile_x, cfg.tile_y)                               # [9, L]
+            cfg.tile_x, cfg.tile_y, tile_order=tile_order)        # [9, L]
         timing.mark("K3_backward")
         summed = binning.reduce_instances(g9, perm, tiles).to(dt)  # [N, 9]
 

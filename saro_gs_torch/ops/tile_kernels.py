@@ -58,7 +58,7 @@ _KERNELS = {
                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                 _P, _P, _P, _P]),
     "forward": ("forward.cu", "saro_forward_tiles",
-                [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P, _P, _P, _P, _P, _P]),
     "backward": ("backward.cu", "saro_backward_tiles",
                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -68,6 +68,7 @@ _KERNELS = {
 }
 # further C functions of a library: name -> (argtypes, restype)
 _HELPERS = {
+    "forward": {"saro_forward_band_rows": ([_I, _I], _I)},
     "grid_scatter": {"saro_scatter_mip_workspace": ([_I] * 5,
                                                     ctypes.c_longlong)},
 }
@@ -199,19 +200,25 @@ def _corner_keep(tx, ty, a, tile_x: int, tile_y: int):
     return op * torch.exp(power_bound) >= compositing.ALPHA_MIN
 
 
+def run_owners(offsets, tiles, n_inst: int):
+    """Owner of each of the n_inst slots, as the plain version finds it:
+    kept Gaussians own consecutive slot ranges that tile [0, n_inst) in
+    Gaussian order, so the owners in slot order are a repeat_interleave of
+    each Gaussian's (capacity-cut) run length."""
+    n = offsets.shape[0]
+    keep = (tiles > 0) & (offsets < n_inst)
+    cnt = torch.where(keep, torch.minimum(tiles, n_inst - offsets),
+                      torch.zeros_like(tiles))
+    return torch.repeat_interleave(torch.arange(n, device=offsets.device),
+                                   cnt.long(), output_size=n_inst)
+
+
 def expand_instances_plain(offsets, tiles, rect, gattr, n_inst: int,
                            grid_x: int, grid_y: int, tile_x: int,
                            tile_y: int, corner_cull: bool):
     """Plain version of K2; see ``expand_instances``."""
     dev = offsets.device
-    n = offsets.shape[0]
-    keep = (tiles > 0) & (offsets < n_inst)
-    cnt = torch.where(keep, torch.minimum(tiles, n_inst - offsets),
-                      torch.zeros_like(tiles))
-    # kept Gaussians own consecutive slot ranges that tile [0, n_inst) in
-    # Gaussian order, so the owners in slot order are a repeat_interleave
-    g = torch.repeat_interleave(torch.arange(n, device=dev), cnt.long(),
-                                output_size=n_inst)
+    g = run_owners(offsets, tiles, n_inst)
     local = torch.arange(n_inst, dtype=torch.int32, device=dev) - offsets[g]
     rmin_x, rmin_y, rmax_x = rect[0][g], rect[1][g], rect[2][g]
     rw = torch.clamp_min(rmax_x - rmin_x, 1)
@@ -246,7 +253,8 @@ def expand_instances(offsets: torch.Tensor, tiles: torch.Tensor,
     offsets[g] <= s < offsets[g] + tiles[g] and covers tile
     (rmin_x + l % rw, rmin_y + l // rw), l = s - offsets[g], rw the rect
     width.  With ``corner_cull`` an instance whose alpha is < 1/255 all
-    over its tile is invalid.
+    over its tile is invalid.  One thread per slot, which finds its owner
+    by binary search over offsets.
 
     Returns keys [n_inst] int64 (tile << 32 | depth bits; the sentinel
     tile grid_x*grid_y for invalid slots, which sort past every real tile),
@@ -284,14 +292,35 @@ def expand_instances(offsets: torch.Tensor, tiles: torch.Tensor,
 # K1: forward compositor
 # ---------------------------------------------------------------------------
 
+def heaviest_first(tile_count: torch.Tensor) -> torch.Tensor:
+    """The compositors' (K1 and K3) launch order: int32 tile ids by
+    ``tile_count``, a stable descending order, so the longest blocks start
+    in the first wave.  Computed once per view, by binning; neither
+    kernel's output depends on it."""
+    return torch.argsort(tile_count, descending=True, stable=True).to(
+        torch.int32)
+
+
+def forward_band_rows(tile_x: int, tile_y: int) -> int:
+    """Rows of a band of K1 for this tile, as the kernel's library picks
+    them (csrc/forward.cu:saro_forward_band_rows; 32x32 tiles: 8 rows, 4
+    bands; 16x16: one band); 0 where the kernel cannot take the tile."""
+    return _fn("forward", "saro_forward_band_rows")(tile_x, tile_y)
+
+
 def forward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
                   tile_count: torch.Tensor, bg: torch.Tensor, width: int,
                   height: int, tile_x: int, tile_y: int, chunk: int,
-                  need_aux: bool = True) -> compositing.ForwardTilesOut:
+                  need_aux: bool = True,
+                  tile_order=None) -> compositing.ForwardTilesOut:
     """K1: front-to-back compositing of every tile's
     [tile_start, tile_start + tile_count) range of the staged table
-    ``attr`` [10, L] (binning.StagedBins).  One block per tile, one thread
-    per pixel, instances staged in shared memory ``chunk`` at a time.
+    ``attr`` [10, L] (binning.StagedBins).  A tile is split into bands of
+    rows (``forward_band_rows``), one block each, launched in
+    ``tile_order`` ([NT] int32, default ``heaviest_first(tile_count)``);
+    each warp culls the instances that cannot reach its 8x4-pixel patch
+    and stops once its pixels are done.  Instances are staged ``chunk`` at
+    a time, which changes no output.
     Plain version: compositing.forward_tiles."""
     if attr.device.type == "cpu":
         return compositing.forward_tiles(attr, tile_start, tile_count, bg,
@@ -303,9 +332,9 @@ def forward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     grid_x = (width + tile_x - 1) // tile_x
     grid_y = (height + tile_y - 1) // tile_y
     nt = grid_x * grid_y
-    if not 32 <= tile_x * tile_y <= 1024:
-        raise ValueError(f"tile {tile_x}x{tile_y}: the kernel takes 32 to "
-                         "1024 pixels per tile")
+    if forward_band_rows(tile_x, tile_y) == 0:
+        raise ValueError(f"tile {tile_x}x{tile_y}: a row of it does not fit "
+                         "one block of the kernel")
     if not 1 <= chunk <= 1024:
         raise ValueError(f"chunk {chunk} outside [1, 1024]")
     _check(attr, "attr", torch.float32, (ROWS, attr.shape[1]), dev)
@@ -321,12 +350,15 @@ def forward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     else:
         n_contrib = torch.zeros((height, width), dtype=torch.int32,
                                 device=dev)
+    if tile_order is None:
+        tile_order = heaviest_first(tile_count)
+    _check(tile_order, "tile_order", torch.int32, (nt,), dev)
     fn = _fn("forward")
-    err = fn(tile_start.data_ptr(), tile_count.data_ptr(), attr.data_ptr(),
-             attr.shape[1], width, height, grid_x, grid_y, tile_x, tile_y,
-             chunk, bg.data_ptr(), color.data_ptr(), depth.data_ptr(),
-             final_t.data_ptr(), n_contrib.data_ptr() if need_aux else None,
-             _stream())
+    err = fn(tile_order.data_ptr(), tile_start.data_ptr(),
+             tile_count.data_ptr(), attr.data_ptr(), attr.shape[1], width,
+             height, grid_x, grid_y, tile_x, tile_y, chunk, bg.data_ptr(),
+             color.data_ptr(), depth.data_ptr(), final_t.data_ptr(),
+             n_contrib.data_ptr() if need_aux else None, _stream())
     _launched("forward", err)
     return compositing.ForwardTilesOut(color=color, depth=depth,
                                        final_t=final_t, n_contrib=n_contrib)
@@ -340,17 +372,18 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
                    tile_count: torch.Tensor, bg: torch.Tensor,
                    n_contrib: torch.Tensor, out_color: torch.Tensor,
                    final_t: torch.Tensor, d_color: torch.Tensor, width: int,
-                   height: int, tile_x: int,
-                   tile_y: int) -> torch.Tensor:
+                   height: int, tile_x: int, tile_y: int,
+                   tile_order=None) -> torch.Tensor:
     """K3: per-instance gradients [9, L] of the compositor on the staged
     table ``attr`` [10, L], from the forward's ``out_color`` [3,H,W],
     ``final_t`` and ``n_contrib`` [H,W] and the colour cotangent
     ``d_color`` [3,H,W].  Rows: d_rgb (3), d_mean2d (2, NDC units of the
     full frame), d_conic (3, true b-gradient), d_opacity (1).  A tile is a
-    cluster of BACKWARD_SPLIT blocks, one band of rows each, launched
-    heaviest first (by the tile's replay bound, its largest n_contrib); a
-    front-to-back replay in batches of BACKWARD_CHUNK instances; slots
-    never visited are zero; no atomics, so two launches agree to the bit.
+    cluster of BACKWARD_SPLIT blocks, one band of rows each, launched in
+    ``tile_order`` (as K1; default ``heaviest_first(tile_count)``), each
+    replaying up to its tile's largest n_contrib; a front-to-back replay
+    in batches of BACKWARD_CHUNK instances; slots never visited are zero;
+    no atomics, so two launches agree to the bit.
     Plain version: compositing.backward_tiles."""
     if attr.device.type == "cpu":
         return compositing.backward_tiles(attr, tile_start, tile_count, bg,
@@ -378,16 +411,16 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     _check(d_color, "d_color", torch.float32, (3, height, width), dev)
     grad = torch.zeros((compositing.GRAD_ROWS, n_slots),
                        dtype=torch.float32, device=dev)
-    # each tile's replay bound, and the tiles heaviest first: a cluster's
-    # time follows its bound
+    if tile_order is None:
+        tile_order = heaviest_first(tile_count)
+    _check(tile_order, "tile_order", torch.int32, (nt,), dev)
+    # each tile's replay bound
     padded = torch.nn.functional.pad(
         n_contrib, (0, grid_x * tile_x - width, 0, grid_y * tile_y - height))
     bound = torch.minimum(padded.reshape(grid_y, tile_y, grid_x, tile_x)
                           .amax(dim=(1, 3)).reshape(-1), tile_count)
-    order = torch.argsort(bound, descending=True, stable=True).to(
-        torch.int32)
     fn = _fn("backward")
-    err = fn(order.data_ptr(), bound.data_ptr(), tile_start.data_ptr(),
+    err = fn(tile_order.data_ptr(), bound.data_ptr(), tile_start.data_ptr(),
              attr.data_ptr(), n_slots, width, height, grid_x, grid_y, tile_x,
              tile_y, BACKWARD_CHUNK, bg.data_ptr(),
              n_contrib.data_ptr(), out_color.data_ptr(), final_t.data_ptr(),

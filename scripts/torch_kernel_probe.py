@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the port's backward kernels spend their time, on one NVIDIA GPU.
+"""Where the port's compositor, expander and field-gradient kernels spend
+their time, on one NVIDIA GPU.
 
-    python3 scripts/torch_kernel_probe.py [--root DIR] [--counters]
+    python3 scripts/torch_kernel_probe.py [--root DIR] [--counters] [--chunk N]
 
 Stages the arena checkpoint's frame as chip_smoke.py does (ring camera 0,
 1352x1014, ts = 0.5, 32x32 tiles) with the saro_gs_torch package found
@@ -10,24 +11,46 @@ package, for a comparison in one run), and prints one JSON line:
 
   * the tiles' replay bounds (min(tile count, the tile's largest
     n_contrib)): the largest 20, the median, the 90th percentile;
+  * whether K2's tables and K1's four outputs (at --chunk) equal their
+    plain versions' to the bit;
+  * K2 (tile_kernels.expand_instances) in ms, CUDA events over 20 launches,
+    the device time of every kernel one call launches, summed, and that of
+    each, by torch.profiler over 10 calls (the wrapper's host time may
+    exceed a short kernel's);
+  * K1 (tile_kernels.forward_tiles, need_aux=False, as the render calls
+    it) in ms, CUDA events over 20 launches, and the device time of every
+    kernel one call launches (the tile-order sort and the zero fill
+    included), summed, by torch.profiler over 10: the whole frame, only
+    the heaviest tile (by tile count), only the 100 heaviest, all but the
+    100 heaviest (the other tiles' counts set to 0); and the device time
+    of each kernel of a whole frame's call;
   * K3 (tile_kernels.backward_tiles) in ms, CUDA events over 10 launches:
     the whole frame, only the heaviest tile, only the 100 heaviest, all but
-    the 100 heaviest (the other tiles' counts set to 0);
+    the 100 heaviest (the other tiles' counts set to 0); and, where the
+    wrappers take a ``tile_order``, the device time of K3's kernel on the
+    whole frame launched by tile count (K1's order) and by replay bound,
+    by torch.profiler over 10 launches, in the order count, bound, bound,
+    count;
   * the grid gradient of one plane (ops/mip.py:_grid_grad, K4 and the
     pyramid's transpose chain) in ms for the (x, y) plane and the (x, t)
     plane, CUDA events over 20 calls, and the host's enqueue time per call;
   * the device time of each kernel that one (x, y) plane's gradient
     launches, by torch.profiler over 5 calls.
 
-With --counters it also builds a copy of csrc/backward.cu with integer
-counters added (under build/probe/) and prints how many (warp, instance)
-pairs K3 meets inside the warps' replay bounds, how many its cull lets
-through, how many have a contributing pixel, and the contributing pixels.
-Imports nothing of JAX.  Times are the card's own: the card's name and
-power limit are in the line.
+With --counters it also builds copies of csrc/backward.cu and
+csrc/forward.cu with integer counters added (under build/probe/) and
+prints how many (warp, instance) pairs K3 meets inside the warps' replay
+bounds, how many its cull lets through, how many have a contributing
+pixel, and the contributing pixels; and how many (warp, instance) pairs
+K1's warps meet while a pixel of theirs still walks, how many the cull
+keeps, and how many they walk before their pixels have all ended.
+Times are taken by this checkout's saro_gs_torch/timing.py, whatever
+--root holds.  Imports nothing of JAX.  Times are the card's own: the
+card's name and power limit are in the line.
 """
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import shutil
@@ -41,79 +64,106 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, TILE = 1352, 1014, 32
 
 
-def cuda_ms(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+def own_timing():
+    """This checkout's saro_gs_torch/timing.py, loaded on its own, so that
+    a --root revision is timed by the same code."""
+    spec = importlib.util.spec_from_file_location(
+        "probe_timing", os.path.join(HERE, "saro_gs_torch", "timing.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-# the counters: (anchor in backward.cu, code put before it)
-_COUNT_DECL = ("namespace cg = cooperative_groups;",
-               "__device__ unsigned long long probe_cnt[4];\n"
-               "extern \"C\" int probe_counters(void* out) {\n"
-               "  return (int)cudaMemcpyFromSymbol(out, probe_cnt,\n"
-               "                                   sizeof(probe_cnt));\n"
-               "}\n")
-_COUNT_LIVE = ("      for (unsigned live = __ballot_sync(kFull, reach);",
-               "      {\n"
-               "        const unsigned rb = __ballot_sync(kFull, reach);\n"
-               "        if (lane == 0) {\n"
-               "          atomicAdd(&probe_cnt[0],\n"
-               "                    (unsigned long long)min(32, wl - g));\n"
-               "          atomicAdd(&probe_cnt[1],\n"
-               "                    (unsigned long long)__popc(rb));\n"
-               "        }\n"
-               "      }\n")
-_COUNT_CONTRIB = ("        if (any1 != 0u && any2 != 0u) {",
-                  "        if (lane == 0) {\n"
-                  "          atomicAdd(&probe_cnt[2], (unsigned long long)"
-                  "((any1 != 0u) + (any2 != 0u)));\n"
-                  "          atomicAdd(&probe_cnt[3], (unsigned long long)"
-                  "(__popc(any1) + __popc(any2)));\n"
-                  "        }\n")
+# the counters of each kernel: its library, the number of counters, and
+# (anchor in its source, code put after (first) or before (the rest) it)
+def _decl(n):
+    return (f"__device__ unsigned long long probe_cnt[{n}];\n"
+            f"extern \"C\" int probe_counters(void* out) {{\n"
+            f"  return (int)cudaMemcpyFromSymbol(out, probe_cnt,\n"
+            f"                                   sizeof(probe_cnt));\n"
+            f"}}\n")
 
 
-def counted_backward(tk):
-    """Build csrc/backward.cu with the counters under build/probe/ and
-    route tile_kernels.backward_tiles through it; returns a function that
-    reads the counters."""
-    src = open(os.path.join(tk._CSRC, "backward.cu")).read()
+_COUNTERS = {
+    "backward": (4, [
+        ("namespace cg = cooperative_groups;", _decl(4)),
+        ("      for (unsigned live = __ballot_sync(kFull, reach);",
+         "      {\n"
+         "        const unsigned rb = __ballot_sync(kFull, reach);\n"
+         "        if (lane == 0) {\n"
+         "          atomicAdd(&probe_cnt[0],\n"
+         "                    (unsigned long long)min(32, wl - g));\n"
+         "          atomicAdd(&probe_cnt[1],\n"
+         "                    (unsigned long long)__popc(rb));\n"
+         "        }\n"
+         "      }\n"),
+        ("        if (any1 != 0u && any2 != 0u) {",
+         "        if (lane == 0) {\n"
+         "          atomicAdd(&probe_cnt[2], (unsigned long long)"
+         "((any1 != 0u) + (any2 != 0u)));\n"
+         "          atomicAdd(&probe_cnt[3], (unsigned long long)"
+         "(__popc(any1) + __popc(any2)));\n"
+         "        }\n")],
+        ("warp_instances_in_bound", "warp_instances_evaluated",
+         "warp_instances_with_contributor", "contributing_pixels")),
+    # K1: (warp, instance) pairs its warps meet while some pixel of theirs
+    # still walks, those the cull keeps, those evaluated before the warp's
+    # pixels all ended
+    "forward": (3, [
+        ('#include "alpha_chain.cuh"', _decl(3)),
+        ("      for (unsigned live = __ballot_sync(kFull, reach); live != 0u;) {",
+         "      {\n"
+         "        const unsigned rb = __ballot_sync(kFull, reach);\n"
+         "        if (lane == 0) {\n"
+         "          atomicAdd(&probe_cnt[0],\n"
+         "                    (unsigned long long)min(32, nb - g));\n"
+         "          atomicAdd(&probe_cnt[1],\n"
+         "                    (unsigned long long)__popc(rb));\n"
+         "        }\n"
+         "      }\n"),
+        ("          al[k] = s.alpha;",
+         "          if (lane == 0 && js[k] >= 0)\n"
+         "            atomicAdd(&probe_cnt[2], 1ull);\n")],
+        ("warp_instances_met", "warp_instances_kept",
+         "warp_instances_evaluated")),
+}
+
+
+def counted(tk, name):
+    """Build csrc/<name>.cu with the counters under build/probe/ and route
+    tile_kernels' wrapper through it; returns a function that reads the
+    counters as a dict."""
+    n, anchors, keys = _COUNTERS[name]
+    src_name = tk._KERNELS[name][0]
+    src = open(os.path.join(tk._CSRC, src_name)).read()
     out_dir = os.path.join(HERE, "build", "probe")
     os.makedirs(out_dir, exist_ok=True)
-    for anchor, code in (_COUNT_DECL, _COUNT_LIVE, _COUNT_CONTRIB):
+    for i, (anchor, code) in enumerate(anchors):
         if src.count(anchor) != 1:
-            raise RuntimeError(f"backward.cu has no single {anchor!r}")
-        if anchor == _COUNT_DECL[0]:
-            src = src.replace(anchor, anchor + "\n" + code)
-        else:
-            src = src.replace(anchor, code + anchor)
-    with open(os.path.join(out_dir, "backward.cu"), "w") as f:
+            raise RuntimeError(f"{src_name} has no single {anchor!r}")
+        src = src.replace(anchor, anchor + "\n" + code if i == 0
+                          else code + anchor)
+    with open(os.path.join(out_dir, src_name), "w") as f:
         f.write(src)
     shutil.copy(os.path.join(tk._CSRC, "alpha_chain.cuh"), out_dir)
-    lib_path = os.path.join(out_dir, "libbackward_counted.so")
+    lib_path = os.path.join(out_dir, f"lib{name}_counted.so")
     res = subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS, "-o", lib_path,
-                          os.path.join(out_dir, "backward.cu")],
+                          os.path.join(out_dir, src_name)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(res.stderr)
     lib = ctypes.CDLL(lib_path)
-    fn = lib.saro_backward_tiles
-    fn.argtypes = tk._KERNELS["backward"][2]
-    fn.restype = ctypes.c_int
-    tk._libs["backward"] = type("Counted", (), {
-        tk._KERNELS["backward"][1]: fn})()
-    buf = (ctypes.c_ulonglong * 4)()
+    _, launch, argtypes = tk._KERNELS[name]
+    for sym, (args, res) in [(launch, (argtypes, ctypes.c_int)),
+                             *tk._HELPERS.get(name, {}).items()]:
+        getattr(lib, sym).argtypes = args
+        getattr(lib, sym).restype = res
+    tk._libs[name] = lib
+    buf = (ctypes.c_ulonglong * n)()
 
     def read():
         lib.probe_counters(buf)
-        return list(buf)
+        return dict(zip(keys, buf))
     return read
 
 
@@ -121,17 +171,21 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--counters", action="store_true")
+    ap.add_argument("--chunk", type=int, default=128,
+                    help="K1's staging batch (the arena config's: 128)")
     opt = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is False: this needs a card")
+    timing = own_timing()
+    event_ms, device_ms = timing.event_ms, timing.device_ms
     sys.path.insert(0, os.path.abspath(opt.root))
     from saro_gs_torch import config as cfg_mod
     from saro_gs_torch import render, scene
     from saro_gs_torch.data import cameras
     from saro_gs_torch.models import field as field_mod
     from saro_gs_torch.models import gaussians as gm
-    from saro_gs_torch.ops import binning, mip, projection
+    from saro_gs_torch.ops import binning, compositing, mip, projection
     from saro_gs_torch.ops import tile_kernels as tk
 
     dev = torch.device("cuda")
@@ -156,12 +210,24 @@ def main():
     pre = projection.preprocess(
         d.xyz, d.scaling, d.rotation, d.opacity.reshape(-1), cam, W, H, TILE,
         TILE, sh_degree=3, shs=d.shs, active=active, tight_rect=True)
-    keys, gid, attr, _, _ = binning.expand(pre, d.opacity.reshape(-1), gx,
-                                           gy, 1 << 21, TILE, TILE, True)
+    offsets, tiles, rect, gattr, total = binning.expand_inputs(
+        pre, d.opacity.reshape(-1))
+    exp_args = (offsets, tiles, rect, gattr, total, gx, gy, TILE, TILE, True)
+    keys, gid, attr = tk.expand_instances(*exp_args)
+    plain = tk.expand_instances_plain(*exp_args)
+    k2_equal = (torch.equal(keys, plain[0]) and torch.equal(gid, plain[1])
+                and torch.equal(attr.view(torch.int32),
+                                plain[2].view(torch.int32)))
+    k2_ms = event_ms(lambda: tk.expand_instances(*exp_args), 20)
+    k2_by_kernel = device_ms(lambda: tk.expand_instances(*exp_args), 10)
     attr_s, _, tstart, tcount, _ = binning.sort_instances(keys, gid, attr,
                                                           gx * gy)
-    fwd = tk.forward_tiles(attr_s, tstart, tcount, bg, W, H, TILE, TILE, 128,
-                           need_aux=True)
+    fwd = tk.forward_tiles(attr_s, tstart, tcount, bg, W, H, TILE, TILE,
+                           opt.chunk, need_aux=True)
+    pf = compositing.forward_tiles(attr_s, tstart, tcount, bg, W, H, TILE,
+                                   TILE, need_aux=True)
+    k1_equal = all(torch.equal(getattr(fwd, k), getattr(pf, k))
+                   for k in ("color", "depth", "final_t", "n_contrib"))
     gen = torch.Generator(device="cpu").manual_seed(0)
     d_color = torch.randn(3, H, W, generator=gen).to(dev)
     padded = torch.nn.functional.pad(fwd.n_contrib,
@@ -174,16 +240,40 @@ def main():
     args = [attr_s, tstart, tcount, bg, fwd.n_contrib, fwd.color,
             fwd.final_t, d_color, W, H, TILE, TILE]
 
-    def only(tiles, keep):
+    def only(tiles, keep, a=args):
         counts = torch.zeros_like(tcount) if keep else tcount.clone()
         counts[tiles] = tcount[tiles] if keep else 0
-        return [*args[:2], counts, *args[3:]]
-    k3 = {name: cuda_ms(torch, lambda a=a: tk.backward_tiles(*a), 10)
+        return [*a[:2], counts, *a[3:]]
+    fwd_args = [attr_s, tstart, tcount, bg, W, H, TILE, TILE, opt.chunk]
+    by_count = torch.argsort(tcount, descending=True, stable=True)
+    k1, k1_device = {}, {}
+    for name, a in (("frame", fwd_args),
+                    ("heaviest_tile", only(by_count[:1], True, fwd_args)),
+                    ("heaviest_100", only(by_count[:100], True, fwd_args)),
+                    ("all_but_heaviest_100",
+                     only(by_count[:100], False, fwd_args))):
+        def call(a=a):
+            return tk.forward_tiles(*a, need_aux=False)
+        k1[name] = event_ms(call, 20)
+        k1_device[name] = sum(device_ms(call, 10).values())
+    k3 = {name: event_ms(lambda a=a: tk.backward_tiles(*a), 10)
           for name, a in (("frame", args), ("heaviest_tile",
                                              only(heavy[:1], True)),
                           ("heaviest_100", only(heavy[:100], True)),
                           ("all_but_heaviest_100",
                            only(heavy[:100], False)))}
+    k3_order = {}
+    if hasattr(tk, "heaviest_first"):
+        orders = {"by_count": tk.heaviest_first(tcount),
+                  "by_bound": tk.heaviest_first(bound)}
+        for key in ("by_count", "by_bound", "by_bound", "by_count"):
+            ms = sum(v for k, v in device_ms(
+                lambda: tk.backward_tiles(*args, tile_order=orders[key]),
+                10).items() if "backward_kernel" in k)
+            k3_order.setdefault(key, []).append(ms)
+        assert torch.equal(
+            tk.backward_tiles(*args, tile_order=orders["by_bound"]),
+            tk.backward_tiles(*args, tile_order=orders["by_count"]))
 
     fcfg = mcfg.field
     with torch.no_grad():
@@ -202,7 +292,7 @@ def main():
         grad_args = (shape, coords4[:, [a, c]].contiguous(),
                      torch.minimum(levels4[:, a], levels4[:, c]), max_level,
                      dfeat)
-        ms = cuda_ms(torch, lambda g=grad_args: mip._grid_grad(*g), 20)
+        ms = event_ms(lambda g=grad_args: mip._grid_grad(*g), 20)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(20):
@@ -212,30 +302,31 @@ def main():
         planes[name] = {"ms": ms, "host_enqueue_ms": host_ms}
         if name == "xy":
             xy_args = grad_args
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            mip._grid_grad(*xy_args)
-        torch.cuda.synchronize()
-    by_kernel = {e.key[:80]: e.self_device_time_total / 5 / 1e3
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.self_device_time_total > 0}
+    by_kernel = device_ms(lambda: mip._grid_grad(*xy_args), 5)
     out = {"card": card, "root": os.path.abspath(opt.root),
            "tile_bounds": {"largest_20": np.sort(b)[::-1][:20].tolist(),
                            "median": float(np.median(b)),
                            "p90": float(np.percentile(b, 90)),
                            "tiles": int(b.size)},
-           "k3_ms": k3, "grid_grad_plane": planes,
+           "max_tile_count": int(tcount.max()), "instances": total,
+           "k2_equal_to_plain": k2_equal, "k1_equal_to_plain": k1_equal,
+           "k2_ms": k2_ms, "k2_device_ms": sum(k2_by_kernel.values()),
+           "k2_device_ms_by_kernel": k2_by_kernel,
+           "k1_ms": k1, "k1_device_ms": k1_device,
+           "k1_device_ms_by_kernel": device_ms(
+               lambda: tk.forward_tiles(*fwd_args, need_aux=False), 10),
+           "k3_ms": k3, "k3_kernel_device_ms_by_order": k3_order,
+           "grid_grad_plane": planes,
            "grid_grad_xy_device_ms_by_kernel": by_kernel}
     if opt.counters:
-        read = counted_backward(tk)
+        read = counted(tk, "backward")
         tk.backward_tiles(*args)
         torch.cuda.synchronize()
-        out["k3_counts"] = dict(zip(
-            ("warp_instances_in_bound", "warp_instances_evaluated",
-             "warp_instances_with_contributor", "contributing_pixels"),
-            read()))
+        out["k3_counts"] = read()
+        read = counted(tk, "forward")
+        tk.forward_tiles(*fwd_args, need_aux=False)
+        torch.cuda.synchronize()
+        out["k1_counts"] = read()
     print(json.dumps(out), flush=True)
 
 

@@ -84,6 +84,106 @@ def test_forward_tiles_on_jax_staged_table(rng):
     _close(b, a)
 
 
+def _counts(rows, px, py):
+    """Where the plain walk evaluates each instance as counting
+    (power <= 0 and alpha >= 1/255) at the pixels (px, py); rows [10, ...]
+    and the pixel tensors broadcast."""
+    x, y, ca, cb, cc, op = rows[:6]
+    dx = x - px
+    dy = y - py
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    alpha = torch.clamp_max(op * torch.exp(torch.clamp_max(power, 0.0)),
+                            tcomp.ALPHA_MAX)
+    return (power <= 0.0) & (alpha >= tcomp.ALPHA_MIN)
+
+
+def _assert_cull_sound(rows, x0, x1, y0, y1):
+    """No (patch, instance) pair that warp_may_reach drops holds a pixel at
+    which the instance counts.  rows [10, I]; boxes [Q]; returns the
+    [Q, I] keep mask."""
+    keep = tcomp.warp_may_reach(rows[:, None, :], x0[:, None], x1[:, None],
+                                y0[:, None], y1[:, None])
+    for q in range(x0.shape[0]):
+        xs = torch.arange(int(x0[q]), int(x1[q]) + 1, dtype=torch.float32)
+        ys = torch.arange(int(y0[q]), int(y1[q]) + 1, dtype=torch.float32)
+        py, px = torch.meshgrid(ys, xs, indexing="ij")
+        hit = _counts(rows[:, :, None], px.reshape(1, -1),
+                      py.reshape(1, -1)).any(dim=1)                # [I]
+        assert not (hit & ~keep[q]).any(), q
+    return keep
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_warp_cull_on_jax_staged_table(rng, tile):
+    """The kernels' warp cull (restated plainly) on a staged table that the
+    JAX package produced: every (8x4 patch, instance) pair it drops is one
+    that no pixel of the patch counts, and it drops some."""
+    cam, means, scales, quats, opac, shs = _scene(rng, saturate=True)
+    gx, gy = -(-W // tile), -(-H // tile)
+    pre = jproj.preprocess(jnp.asarray(means), jnp.asarray(scales),
+                           jnp.asarray(quats), jnp.asarray(opac), cam, W, H,
+                           tile, tile, sh_degree=3, shs=jnp.asarray(shs),
+                           tight_rect=True)
+    bins = jbin.bin_gaussians_staged(pre, jnp.asarray(opac), gx, gy,
+                                     1 << 14, 128, tile_x=tile, tile_y=tile,
+                                     packed=False, expander="sort")
+    attr = t(n(bins.attr)[:10])
+    start, count = n(bins.tile_start), n(bins.tile_count)
+    pairs = kept = 0
+    for tid in range(gx * gy):
+        if count[tid] == 0:
+            continue
+        rows = attr[:, start[tid]:start[tid] + count[tid]]
+        (x0, x1, y0, y1), ok = tcomp.patch_boxes(torch.tensor([tid]), W, H,
+                                                 tile, tile)
+        ok = ok[0]
+        keep = _assert_cull_sound(rows, x0[0][ok], x1[0][ok], y0[0][ok],
+                                  y1[0][ok])
+        pairs += keep.numel()
+        kept += int(keep.sum())
+    assert 0 < kept < pairs
+    assert (pairs, kept) == tcomp.cull_counts(attr, t(start), t(count), W,
+                                              H, tile, tile)
+
+
+def test_warp_cull_edge_rows():
+    """Seeded rows with an indefinite conic, a NaN row and opacities at the
+    1/255 edge, against random patches: the cull stays sound, keeps the NaN
+    and the indefinite conics, and keeps a splat at or above the edge over
+    its centre."""
+    r = np.random.RandomState(7)
+    k = 400
+    rows = np.zeros((10, k), np.float32)
+    rows[0:2] = r.uniform(-20, 60, (2, k))
+    sig = r.uniform(0.5, 15.0, k)
+    rows[2] = 1.0 / sig ** 2
+    rows[3] = r.uniform(-0.9, 0.9, k) / sig ** 2
+    rows[4] = r.uniform(0.3, 3.0, k) / sig ** 2
+    rows[5] = r.uniform(0.0, 1.0, k)
+    edge = np.float32(1.0 / 255.0)
+    rows[5, 10:20] = [np.nextafter(edge, np.float32(0)), edge,
+                      np.nextafter(edge, np.float32(1))] * 3 + [edge]
+    rows[2:5, 30] = (-0.5, 0.0, -0.5)          # indefinite conic
+    rows[2:5, 31] = (0.5, 0.9, 0.5)            # indefinite (det < 0)
+    rows[:, 40] = np.nan
+    rows[6:] = r.uniform(0, 1, (4, k))
+    rows = torch.as_tensor(rows)
+    x0 = torch.as_tensor(r.randint(0, 40, 64).astype(np.float32))
+    y0 = torch.as_tensor(r.randint(0, 40, 64).astype(np.float32))
+    x1 = x0 + torch.as_tensor(r.randint(0, 8, 64).astype(np.float32))
+    y1 = y0 + torch.as_tensor(r.randint(0, 4, 64).astype(np.float32))
+    keep = _assert_cull_sound(rows, x0, x1, y0, y1)
+    assert keep[:, 40].all() and keep[:, 30].all() and keep[:, 31].all()
+    assert not keep.all()
+    # an edge splat whose mean lies in the patch counts at the mean's pixel
+    centre = rows[:, 10:20].clone()
+    centre[0:2] = 8.0
+    box = torch.tensor([6.0]), torch.tensor([13.0]), torch.tensor([7.0]), \
+        torch.tensor([10.0])
+    keep = _assert_cull_sound(centre, *box)
+    assert keep[0][centre[5] >= edge].all()
+
+
 def _table(rows):
     """[10, L] staged table from per-instance tuples
     (x, y, ca, cb, cc, opacity, r, g, b, depth)."""

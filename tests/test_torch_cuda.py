@@ -75,10 +75,66 @@ def test_expand_kernel_matches_plain(dev, tile, tight, cap):
     assert torch.equal(attr.view(torch.int32), pa.view(torch.int32))
 
 
-@pytest.mark.parametrize("tile,chunk,need_aux", [(16, 64, True),
-                                                 (32, 128, True),
-                                                 (32, 100, False)])
+def test_expand_kernel_wide_splat_and_capacity_cut(dev):
+    """K2 exact on a table with one splat over 600 tiles among small ones,
+    zero-tile Gaussians between and after them, and capacities that cut
+    inside the wide run and inside a small one."""
+    rng = np.random.RandomState(8)
+    n, gx, gy, tile = 2000, 43, 32, 32
+    rmin = np.stack([rng.randint(0, gx - 3, n), rng.randint(0, gy - 3, n)])
+    size = np.stack([rng.randint(1, 4, n), rng.randint(1, 4, n)])
+    rmin[:, 700], size[:, 700] = (2, 3), (30, 20)
+    rect = np.stack([rmin[0], rmin[1], rmin[0] + size[0]]).astype(np.int32)
+    tiles = (size[0] * size[1]).astype(np.int32)
+    tiles[rng.rand(n) < 0.3] = 0
+    tiles[-40:] = 0
+    tiles[700] = 600
+    offsets = (np.cumsum(tiles) - tiles).astype(np.int32)
+    gattr = np.zeros((10, n), np.float32)
+    gattr[0] = (rmin[0] + size[0] / 2) * tile
+    gattr[1] = (rmin[1] + size[1] / 2) * tile
+    sig = rng.uniform(2, 40, n)
+    sig[700] = 150.0                    # the corner cull trims its corners
+    gattr[2], gattr[4] = 1 / sig ** 2, 1 / sig ** 2
+    gattr[3] = rng.uniform(-0.3, 0.3, n) / sig ** 2
+    gattr[5] = rng.uniform(0.001, 1, n)
+    gattr[5, 700] = 0.9
+    gattr[6:9] = rng.uniform(0, 1, (3, n))
+    gattr[9] = rng.uniform(0.3, 50, n)
+    total = int(tiles.sum())
+    small = int(np.flatnonzero(tiles >= 4)[-1])
+    args = [torch.as_tensor(x, device=dev) for x in (offsets, tiles, rect,
+                                                      gattr)]
+    for n_inst in (total, int(offsets[700]) + 250, int(offsets[small]) + 1):
+        for cull in (True, False):
+            rest = (n_inst, gx, gy, tile, tile, cull)
+            k = tile_kernels.expand_instances(*args, *rest)
+            p = tile_kernels.expand_instances_plain(*args, *rest)
+            assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+            assert torch.equal(k[2].view(torch.int32),
+                               p[2].view(torch.int32))
+            if cull:
+                assert (k[1] < 0).any() and (k[1] == 700).sum() > 100
+
+
+def _assert_forward_equal(k, p, need_aux):
+    """K1 against its plain version: equal to the bit."""
+    assert torch.equal(k.color, p.color)
+    assert torch.equal(k.depth, p.depth)
+    assert torch.equal(k.final_t, p.final_t)
+    if need_aux:
+        assert torch.equal(k.n_contrib, p.n_contrib)
+    else:
+        assert int(k.n_contrib.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("need_aux", [True, False])
+@pytest.mark.parametrize("chunk", [64, 100, 128])
+@pytest.mark.parametrize("tile", [16, 32])
 def test_forward_kernel_matches_plain(dev, tile, chunk, need_aux):
+    """K1 (bands, warp cull, per-warp stop) equal to the bit to its plain
+    version in colour, depth, final T and n_contrib, whatever the tile
+    and the staging batch."""
     pre, o, w, h = _pre(dev, tile, True)
     gx, gy = -(-w // tile), -(-h // tile)
     bins = binning.bin_gaussians_staged(pre, o, gx, gy, 1 << 20, tile, tile)
@@ -93,13 +149,68 @@ def test_forward_kernel_matches_plain(dev, tile, chunk, need_aux):
                                   bins.tile_count, bg, w, h, tile, tile,
                                   need_aux=need_aux)
     assert float(p.final_t.min()) < 1e-3
-    assert (k.color - p.color).abs().max().item() <= 1e-4
-    assert (k.final_t - p.final_t).abs().max().item() <= 1e-4
-    assert (k.depth == p.depth).float().mean().item() >= 0.999
-    if need_aux:
-        assert (k.n_contrib == p.n_contrib).float().mean().item() >= 0.999
-    else:
-        assert int(k.n_contrib.abs().sum()) == 0
+    _assert_forward_equal(k, p, need_aux)
+
+
+@pytest.mark.parametrize("tile_x,tile_y", [(12, 10), (64, 16), (8, 8)])
+def test_forward_kernel_other_tiles(dev, tile_x, tile_y):
+    """K1 on tiles the arena config does not use: a 12x10 tile is two
+    bands (8 rows, then 2) of consecutive pixels rather than 8x4 patches, a
+    64x16 tile four bands of 64x4, an 8x8 tile one block of 64 threads.
+    Equal to the bit."""
+    cam, (m, s, q, o, sh) = _scene(0, 3000, 200, 150)
+    pre = projection.preprocess(
+        m.to(dev), s.to(dev), q.to(dev), o.to(dev), cam.raster_params(dev),
+        200, 150, tile_x, tile_y, sh_degree=3, shs=sh.to(dev),
+        tight_rect=True)
+    gx, gy = -(-200 // tile_x), -(-150 // tile_y)
+    bins = binning.bin_gaussians_staged(pre, o.to(dev), gx, gy, 1 << 20,
+                                        tile_x, tile_y)
+    bg = torch.tensor([0.2, 0.5, 1.0], device=dev)
+    k = tile_kernels.forward_tiles(bins.attr, bins.tile_start,
+                                   bins.tile_count, bg, 200, 150, tile_x,
+                                   tile_y, 64, need_aux=True)
+    p = compositing.forward_tiles(bins.attr, bins.tile_start,
+                                  bins.tile_count, bg, 200, 150, tile_x,
+                                  tile_y, need_aux=True)
+    _assert_forward_equal(k, p, True)
+
+
+def test_forward_kernel_heavy_tile(dev):
+    """One 32x32 tile with 4,000 instances: opaque splats over its top-left
+    corner end those warps' walks early, faint ones elsewhere keep the other
+    warps walking to the end of the range.  Equal to the bit."""
+    rng = np.random.RandomState(6)
+    n, n_opaque, tile = 4000, 300, 32
+    rows = np.zeros((10, n), np.float32)
+    rows[0:2] = rng.uniform(-4, 36, (2, n))
+    rows[0:2, :n_opaque] = rng.uniform(0, 8, (2, n_opaque))
+    sig = rng.uniform(2.0, 12.0, n)
+    sig[:n_opaque] = rng.uniform(1.5, 3.0, n_opaque)
+    rows[2] = 1.0 / sig ** 2
+    rows[3] = rng.uniform(-0.2, 0.2, n) / sig ** 2
+    rows[4] = 1.0 / sig ** 2
+    rows[5] = rng.uniform(0.004, 0.03, n)
+    rows[5, :n_opaque] = rng.uniform(0.6, 0.95, n_opaque)
+    rows[6:9] = rng.uniform(0, 1, (3, n))
+    rows[9] = np.sort(rng.uniform(1, 10, n))
+    perm = rng.permutation(n)                 # opaque ones spread in depth
+    rows[:9] = rows[:9, perm]
+    attr = torch.as_tensor(rows, device=dev)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    cnt = torch.full((1,), n, dtype=torch.int32, device=dev)
+    bg = torch.tensor([0.2, 0.5, 1.0], device=dev)
+    for chunk in (64, 128):
+        k = tile_kernels.forward_tiles(attr, start, cnt, bg, tile, tile,
+                                       tile, tile, chunk, need_aux=True)
+        p = compositing.forward_tiles(attr, start, cnt, bg, tile, tile, tile,
+                                      tile, need_aux=True)
+        _assert_forward_equal(k, p, True)
+    # the 8x4-pixel warp patches: some end before half the range, some
+    # walk all of it
+    patches = p.n_walked.reshape(8, 4, 4, 8).permute(0, 2, 1, 3)
+    assert int((patches < n // 2).all(3).all(2).sum()) >= 2
+    assert int((patches == n).all(3).all(2).sum()) >= 2
 
 
 def test_forward_kernel_masks_rows_past_the_range(dev):
@@ -115,6 +226,35 @@ def test_forward_kernel_masks_rows_past_the_range(dev):
         p = compositing.forward_tiles(attr, start, cnt, bg, 8, 8, 8, 8)
         assert torch.isfinite(k.color).all()
         assert torch.equal(k.color, p.color)
+
+
+@pytest.mark.parametrize("kernel", ["forward", "backward"])
+def test_compositors_any_tile_order(dev, kernel):
+    """K1 and K3 launched in a random tile order give the bits of the
+    heaviest-first order binning computes."""
+    tile = 32
+    pre, o, w, h = _pre(dev, tile, True)
+    gx, gy = -(-w // tile), -(-h // tile)
+    bins = binning.bin_gaussians_staged(pre, o, gx, gy, 1 << 20, tile, tile)
+    bg = torch.tensor([0.2, 0.5, 1.0], device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    shuffled = torch.randperm(gx * gy, generator=gen).to(dev, torch.int32)
+    assert not torch.equal(shuffled, bins.tile_order)
+
+    def forward(order):
+        return tile_kernels.forward_tiles(
+            bins.attr, bins.tile_start, bins.tile_count, bg, w, h, tile,
+            tile, 128, need_aux=True, tile_order=order)
+    f = forward(bins.tile_order)
+    if kernel == "forward":
+        _assert_forward_equal(forward(shuffled), f, True)
+        return
+    d_color = torch.randn(3, h, w, generator=gen).to(dev)
+    args = (bins.attr, bins.tile_start, bins.tile_count, bg, f.n_contrib,
+            f.color, f.final_t, d_color, w, h, tile, tile)
+    assert torch.equal(
+        tile_kernels.backward_tiles(*args, tile_order=shuffled),
+        tile_kernels.backward_tiles(*args, tile_order=bins.tile_order))
 
 
 def test_render_cuda_matches_cpu(dev):
