@@ -48,15 +48,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
  10. gradient parity with the JAX package: one training view at 338x254
      against tests/golden/torch_arena_grads_338x254.npz (loss within 1e-5,
      every group's gradients within 0.05 of its largest entry);
- 11. one JSON line of results, one of the kernels, then the card line,
+ 11. the trainer: configs/synth/arena.json at full width (planes
+     128^3 x 50, 32 channels, batch 2, its losses), its schedule cut to 150
+     iterations (static until 50, densify at 80 and 120, opacity reset at
+     120, integral refreshes at 100 and 150, test at 150, capacity 1 so the
+     first densify grows it), trained from a point cloud through
+     cli.train_main.  The scene is built in memory and reaches the trainer
+     through the port's Scene and reader registry: 21 ring cameras at
+     1352x1014 (camera 0 the test view), ground truth rendered from the
+     arena checkpoint, and 65,000 points of the checkpoint's positions at
+     random frames plus N(0, 0.01) noise, coloured by its DC term plus
+     noise.  Checked: no bad step, nothing dropped, the last loss logged
+     before the opacity reset below 0.7 of the first and the last one
+     below the first, each densify's count adding up, the saved
+     checkpoint reloading through Scene to the same render to the bit, a
+     finite eval PSNR, and cli.test_main's metrics (where PIL imports)
+     equal to that render's.  Measured: iterations/s over the dynamic
+     stage (loop, loader and control included) beside train_step_core
+     alone, ms per densify pass and capacity growth, the card's busy share
+     over 5 iterations, the kernels' launches over 8;
+ 12. one JSON line of results, one of the kernels, then the card line,
      then the result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Times are the card's own: read them beside the
 card's name and power limit printed with them.
 """
+import dataclasses
+import importlib.util
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -97,6 +119,15 @@ K4_FLOPS_PER_TAP_CHANNEL = 2
 # relative L2 error
 K3_TOL = 1e-5
 BATCH = 4
+ARENA_CONFIG = os.path.join(HERE, "configs", "synth", "arena.json")
+# the trainer phase's scene: cameras, frames, init points, and where its
+# config and model go (build/ is git-ignored)
+N_CAMS, DURATION, N_INIT = 21, 50, 65_000
+TRAIN_DIR = os.path.join(HERE, "build", "chip_smoke")
+LOADER = "chip_smoke_arena"
+SCHEDULE = dict(iterations=150, static_iteration=50, densify_from_iter=60,
+                densification_interval=40, densify_until_iter=140,
+                opacity_reset_interval=120, test_iteration=150, capacity=1)
 
 
 def log(msg):
@@ -134,6 +165,254 @@ def call_ms(fn, timing):
     if total > 0:
         return total, wrapper, "profiler", by_kernel
     return wrapper, wrapper, "events", by_kernel
+
+
+def arena_scene_info(params, nets, alive, fstatic, mcfg, rcfg, dev):
+    """The trainer phase's scene, in memory: ring cameras with ground truth
+    rendered from the checkpoint, and a point cloud of its positions at
+    random frames plus noise (the layout of scripts/make_synth_scene.py,
+    whose renderer is the JAX package's)."""
+    import torch
+    from saro_gs_torch import render
+    from saro_gs_torch.data import cameras, readers
+    from saro_gs_torch.models import gaussians as gm
+    from saro_gs_torch.ops import sh
+    bg = torch.ones(3, device=dev)
+    cams = []
+    for i, c2w in enumerate(cameras.ring_cameras(N_CAMS)):
+        ts = ((7 * i) % DURATION) / DURATION
+        cam = dataclasses.replace(
+            cameras.camera_from_c2w(c2w, 0.85, W, H, ts), uid=i,
+            image_name=f"r_{i:02d}")
+        out, _ = render.test_render(cam.raster_params(dev), ts, params, nets,
+                                    alive, mcfg, fstatic, bg, width=W,
+                                    height=H, sh_degree=3, rcfg=rcfg)
+        check(out.num_dropped == 0, f"ground truth {i}: instances dropped")
+        cam.set_image(torch.clamp(out.color, 0, 1).cpu().numpy())
+        cams.append(cam)
+    rng = np.random.RandomState(1)
+    idx = rng.randint(0, params.xyz.shape[0], N_INIT)
+    frames = rng.randint(0, DURATION, N_INIT) / DURATION
+    sub = gm.GaussianParams(*[x[torch.as_tensor(idx, device=dev)]
+                              for x in params])
+    with torch.no_grad():
+        d = gm.deform(sub, nets, mcfg, fstatic, torch.as_tensor(
+            frames[:, None], dtype=torch.float32, device=dev))
+    pts = d.xyz.cpu().double().numpy() + rng.normal(0, 0.01, (N_INIT, 3))
+    colors = np.clip(sh.sh2rgb(sub.features_dc[:, 0].cpu().double().numpy())
+                     + rng.normal(0, 0.05, (N_INIT, 3)), 0, 1)
+    radius, translate = readers.nerfpp_norm(cams[1:])
+    return readers.SceneInfo(
+        point_cloud=gm.PointCloud(points=pts, colors=colors,
+                                  times=frames[:, None]),
+        train_cameras=cams[1:], test_cameras=cams[:1], val_cameras=[],
+        nerf_radius=radius, nerf_translate=translate, ply_path="")
+
+
+def trainer_phase(params, nets, alive, fstatic, mcfg, rcfg, dev, tk):
+    """Phase 11: train the arena configuration from a point cloud through
+    cli.train_main; returns (the "trainer" results, the kernels' launches
+    over the run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from saro_gs_torch import cli, render, scene
+    from saro_gs_torch.data import readers
+    from saro_gs_torch.train import losses
+    from saro_gs_torch.train import step as step_mod
+    from saro_gs_torch.train.trainer import Trainer
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = t0 = time.perf_counter()
+    info = arena_scene_info(params, nets, alive, fstatic, mcfg, rcfg, dev)
+    readers.SCENE_READERS[LOADER] = lambda *a, **k: info
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    with open(ARENA_CONFIG) as f:
+        config = json.load(f)
+    config.update(SCHEDULE, loader=LOADER)
+    cfg_path = os.path.join(TRAIN_DIR, "arena_150.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    model = os.path.join(TRAIN_DIR, "model")
+    scene_s = time.perf_counter() - t0
+    log(f"trainer: scene of {N_CAMS} cameras at {W}x{H} and {N_INIT} points "
+        f"built in {scene_s:.1f} s; schedule {SCHEDULE}")
+
+    # densify passes and capacity growth, each timed to a synchronize
+    timed = {"_densify": [], "grow_capacity": []}
+    originals = {name: getattr(Trainer, name) for name in timed}
+
+    def timed_method(name):
+        def run(self, *a, **k):
+            sync()
+            t = time.perf_counter()
+            out = originals[name](self, *a, **k)
+            sync()
+            timed[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+    for name in timed:
+        setattr(Trainer, name, timed_method(name))
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        tr = cli.train_main(["-s", "in-memory", "--config", cfg_path, "-m",
+                             model, "--device", str(dev)])
+    finally:
+        for name, fn in originals.items():
+            setattr(Trainer, name, fn)
+    sync()
+    run_s = time.perf_counter() - t0
+    launches = dict(tk.launches)
+    cfg = tr.cfg
+    hist = {h["it"]: h for h in tr.history}
+    st = tr.state
+    check(st.step == cfg.iterations, f"trainer: stopped at {st.step}")
+    check(st.bad_steps == 0 and not any("bad_step" in h for h in tr.history),
+          f"trainer: {st.bad_steps} bad steps")
+    check(not tr.overflows and st.dropped_hwm == 0,
+          f"trainer: instances dropped: {tr.overflows}, {st.dropped_hwm}")
+    # the opacity reset at 120 clamps every opacity to 0.01, below the
+    # start's 0.1, and 30 iterations do not bring it back: the loss must
+    # fall by 30% before the reset and stay below the first after it
+    first, last = hist[1]["loss"], hist[cfg.iterations]["loss"]
+    before_reset = max(i for i in hist if i < cfg.opacity_reset_interval)
+    pre = hist[before_reset]["loss"]
+    check(pre < 0.7 * first and last < first,
+          f"trainer: loss {first} -> {pre} (it {before_reset}) -> {last}")
+    check([d["it"] for d in tr.densify_log] == [80, 120],
+          f"trainer: densify ran at {[d['it'] for d in tr.densify_log]}")
+    for d in tr.densify_log:
+        check(d["after"] == d["before"] + d["cloned"] + d["split"]
+              - d["pruned"], f"trainer: densify counts do not add up: {d}")
+    check(all(launches[k] > 0 for k in launches),
+          f"trainer: a kernel never launched in the run: {launches}")
+    dyn = (cfg.iterations - cfg.static_iteration) / (
+        hist[cfg.iterations]["elapsed_s"] - hist[cfg.static_iteration]
+        ["elapsed_s"])
+    with open(os.path.join(model, f"{cfg.iterations}_runtimeresults.json")) \
+            as f:
+        report = json.load(f)
+    check(math.isfinite(report["PSNR"]), f"trainer: eval PSNR {report}")
+    log(f"trainer: {cfg.iterations} iterations in {run_s:.1f} s "
+        f"({dyn:.3f} it/s over the dynamic stage), loss {first:.5f} -> "
+        f"{pre:.5f} (it {before_reset}) -> {last:.5f}, {tr.n_alive()} "
+        f"points; densify {tr.densify_log} in "
+        f"{timed['_densify']} ms, grow {timed['grow_capacity']} ms; eval "
+        f"PSNR {report['PSNR']:.3f} SSIM {report['SSIM']:.4f} MS-SSIM "
+        f"{report['MS-SSIM']:.4f}; launches {launches}")
+
+    # the saved checkpoint renders as the trainer's final state does
+    cam = info.test_cameras[0]
+    loaded = scene.Scene(cfg, load_iteration=str(cfg.iterations), device=dev)
+    bg = torch.ones(3, device=dev)
+    eval_rcfg = cfg.raster_config()._replace(max_instances=tr.rcfg
+                                             .max_instances)
+    outs = []
+    for p, n_, a, fs in ((st.points, st.nets, st.alive, tr.scene.fstatic),
+                         (loaded.params, loaded.nets, loaded.alive,
+                          loaded.fstatic)):
+        out, _ = render.test_render(cam.raster_params(dev), cam.timestamp, p,
+                                    n_, a, tr.mcfg, fs, bg, width=W,
+                                    height=H, sh_degree=cfg.sh_degree,
+                                    rcfg=eval_rcfg)
+        check(out.num_dropped == 0, "trainer: the check render dropped")
+        outs.append(out)
+    check(all(torch.equal(getattr(outs[0], k), getattr(outs[1], k))
+              for k in ("color", "depth", "final_t")),
+          "trainer: the reloaded checkpoint renders differently")
+    img = torch.clamp(outs[0].color, 0, 1)
+    gt = torch.as_tensor(cam.load_image(True), device=dev)
+    final = {"PSNR": float(losses.psnr(img, gt)),
+             "SSIM": float(losses.ssim(img, gt)),
+             "MS-SSIM": float(losses.msssim(img, gt))}
+    log(f"trainer: checkpoint {cfg.iterations} ({loaded.alive.shape[0]} "
+        f"rows) renders the test view as the trainer's state "
+        f"({st.alive.shape[0]} rows) does, to the bit; at SH degree "
+        f"{cfg.sh_degree}: {final}")
+
+    # 8 more dynamic iterations: the kernels' launches and the loop's rate
+    tk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    tr.run(max_iterations=cfg.iterations + 8, log_every=10 ** 6)
+    sync()
+    loop8 = 8 / (time.perf_counter() - t0)
+    launches8 = dict(tk.launches)
+    check(all(launches8[k] > 0 for k in launches8),
+          f"trainer: a kernel never launched in 8 iterations: {launches8}")
+    # 5 under torch.profiler: the card's busy share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        tr.run(max_iterations=cfg.iterations + 13, log_every=10 ** 6)
+        sync()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / 5
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / 5
+    # train_step_core alone on one batch of the loader, 8 steps
+    loader = tr.scene.train_loader(cfg.batch, num_workers=2, seed=cfg.seed)
+    try:
+        cams_b, gt_b, ts_b = tr._to_device(next(iter(loader)))
+    finally:
+        loader.close()
+    state = tr.state
+
+    def core(state):
+        return step_mod.train_step_core(
+            state, cams_b, gt_b, ts_b, tr.bg, tr.scene.fstatic,
+            tr._statics(), stage="dynamatic", sh_degree=cfg.sh_degree,
+            scale_integral=False, sh_mask=tr._sh_mask(tr.active_sh_degree))
+    state, m = core(state)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        state, m = core(state)
+        check(m["bad_step"] == 0 and m["dropped"] == 0,
+              f"trainer: a train_step_core step went wrong: {m}")
+    sync()
+    core_its = 8 / (time.perf_counter() - t0)
+    log(f"trainer: 8 iterations through the loop {loop8:.3f} it/s, "
+        f"train_step_core alone {core_its:.3f} it/s; launches in 8 "
+        f"iterations {launches8}; card busy {busy_ms:.2f} ms of "
+        f"{traced_ms:.2f} ms an iteration under the profiler "
+        + (f"({100 * busy_ms / traced_ms:.1f}%)" if busy_ms > 0 else
+           "(no device time reported: not measured)"))
+
+    test_main = None
+    if importlib.util.find_spec("PIL") is not None:
+        res = cli.test_main(["-m", model, "--iteration", str(cfg.iterations),
+                             "--device", str(dev), "--skip_val"])
+        for k, v in final.items():
+            check(abs(res[k] - v) <= 1e-6 * abs(v),
+                  f"trainer: test_main's {k} {res[k]} against {v}")
+        test_main = {k: res[k] for k in final}
+        log(f"trainer: cli.test_main ran, metrics equal: {test_main}")
+    else:
+        log("trainer: PIL is not installed; cli.test_main not run")
+    readers.SCENE_READERS.pop(LOADER, None)
+    phase_s = time.perf_counter() - t_phase
+    log(f"trainer: the phase took {phase_s:.1f} s")
+    return {
+        "iterations": cfg.iterations, "batch": cfg.batch, "phase_s": phase_s,
+        "resolution": [W, H], "init_points": N_INIT, "scene_s": scene_s,
+        "run_s": run_s, "dynamic_its_per_s": dyn,
+        "loop_its_per_s_8": loop8, "train_step_core_its_per_s": core_its,
+        "densify_ms": timed["_densify"],
+        "grow_capacity_ms": timed["grow_capacity"],
+        "capacity_grew": bool(timed["grow_capacity"]),
+        "densify": tr.densify_log, "points_final": tr.n_alive(),
+        "loss_first": first, "loss_before_reset": pre, "loss_last": last,
+        "eval": {k: report[k] for k in ("PSNR", "SSIM", "MS-SSIM")},
+        "render_sh3": final, "test_main": test_main,
+        "card_busy_ms_per_it": busy_ms or None,
+        "traced_ms_per_it": traced_ms,
+        "launches_8_its": launches8}, launches
 
 
 def main():
@@ -674,13 +953,18 @@ def main():
           and report["worst_norm_rel_err"] <= 0.05,
           "gradient parity with JAX failed")
 
-    # ---- 11. summary --------------------------------------------------------
+    # ---- 11. the trainer --------------------------------------------------
+    trainer, trainer_counts = trainer_phase(params, nets, alive, fstatic,
+                                            mcfg, rcfg, dev, tk)
+
+    # ---- 12. summary --------------------------------------------------------
     k4m = k4[cases[0][0]]
     kernels = [
         {"name": "expand_instances (K2)", "route": "cuda",
          "source": "saro_gs_torch/csrc/expand.cu",
          "replaces": "saro_gs_tpu/ops/tile_kernels.py:203",
          "launches": train_counts["expand"],
+         "launches_trainer": trainer_counts["expand"],
          "launches_render": counts["expand"], "max_abs_err": k2_err,
          "check": "exact", "ms": k2_ms, "ms_by": k2_src,
          "wrapper_ms": k2_wrapper_ms,
@@ -690,6 +974,7 @@ def main():
          "source": "saro_gs_torch/csrc/forward.cu",
          "replaces": "saro_gs_tpu/ops/tile_kernels.py:409",
          "launches": train_counts["forward"],
+         "launches_trainer": trainer_counts["forward"],
          "launches_render": counts["forward"], "max_abs_err": col_err,
          "check": "colour, depth, final T, n_contrib equal to the bit",
          "band": band, "batch": rcfg.chunk,
@@ -701,7 +986,9 @@ def main():
         {"name": "backward_tiles (K3)", "route": "cuda",
          "source": "saro_gs_torch/csrc/backward.cu",
          "replaces": "saro_gs_tpu/ops/tile_kernels.py:726",
-         "launches": train_counts["backward"], "max_abs_err": k3_err,
+         "launches": train_counts["backward"],
+         "launches_trainer": trainer_counts["backward"],
+         "max_abs_err": k3_err,
          "check": f"each row <= {K3_TOL:g} of its max and in relative L2, "
                   "unvisited slots zero, two launches bit-equal",
          "rel_l2_err": k3_l2, "batch": tk.BACKWARD_CHUNK,
@@ -712,7 +999,9 @@ def main():
         {"name": "scatter_mip_taps (K4)", "route": "cuda",
          "source": "saro_gs_torch/csrc/grid_scatter.cu",
          "replaces": "saro_gs_tpu/ops/grid_scatter.py:50",
-         "launches": train_counts["grid_scatter"], "max_abs_err": k4_err,
+         "launches": train_counts["grid_scatter"],
+         "launches_trainer": trainer_counts["grid_scatter"],
+         "max_abs_err": k4_err,
          "check": "<= 1e-5 of the output's max, two launches bit-equal",
          "shape": cases[0][0],
          "ms": k4m["ms"], "plain_ms": k4m["plain_ms"],
@@ -741,6 +1030,7 @@ def main():
                                 "traced_ms_per_step": trace_ms,
                                 "grad_parity": report},
                       "k4_shapes": k4}), flush=True)
+    print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

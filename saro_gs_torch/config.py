@@ -195,3 +195,10 @@ def load_cfg_args(path: str) -> Config:
         d = json.load(f)
     d.pop("unknown_keys", None)
     return load_config(**d)
+
+
+def save_cfg_args(cfg: Config, path: str):
+    """The config as JSON beside the model (the JAX package's
+    cfg_args.json; ``load_cfg_args`` reads it back)."""
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)

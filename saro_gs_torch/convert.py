@@ -61,6 +61,15 @@ def _net_leaves_to_torch(nets: gm.DeformNets, leaves_np, dev) -> List:
     return out
 
 
+def net_leaves_to_jax(nets: gm.DeformNets, leaves=None) -> List:
+    """``leaves`` (default: the nets' own), shaped like ``nets.leaves()``,
+    as numpy arrays in the JAX layout and treedef order."""
+    leaves = nets.leaves() if leaves is None else leaves
+    return [x.detach().cpu().numpy().T if name.endswith(".weight")
+            else x.detach().cpu().numpy()
+            for name, x in zip(nets.leaf_names(), leaves)]
+
+
 def jax_to_torch(params_np: Mapping[str, np.ndarray],
                  nets_np_leaves: Sequence[np.ndarray],
                  fstatic_np: Mapping[str, np.ndarray],
@@ -86,7 +95,7 @@ def jax_to_torch(params_np: Mapping[str, np.ndarray],
     params = gm.GaussianParams(**fields)
 
     nets = gm.DeformNets(cfg).to(dev)
-    with torch.no_grad():
+    with torch.no_grad():   # the heads come allocated, not initialized
         for p, leaf in zip(nets.leaves(),
                            _net_leaves_to_torch(nets, nets_np_leaves, dev)):
             p.copy_(leaf)
@@ -133,21 +142,15 @@ def train_state_to_numpy(state: TrainState) -> dict:
     def n(x):
         return x.detach().cpu().numpy()
 
-    names = state.nets.leaf_names()
-
-    def net_np(leaves):
-        return [n(x).T if name.endswith(".weight") else n(x)
-                for name, x in zip(names, leaves)]
-
     fields = gm.GaussianParams._fields
     k = len(fields)
     return {
         "points": {f: n(x) for f, x in zip(fields, state.points)},
-        "net_leaves": net_np(state.nets.leaves()),
+        "net_leaves": net_leaves_to_jax(state.nets),
         "mu_points": {f: n(x) for f, x in zip(fields, state.opt.mu[:k])},
-        "mu_net_leaves": net_np(state.opt.mu[k:]),
+        "mu_net_leaves": net_leaves_to_jax(state.nets, state.opt.mu[k:]),
         "nu_points": {f: n(x) for f, x in zip(fields, state.opt.nu[:k])},
-        "nu_net_leaves": net_np(state.opt.nu[k:]),
+        "nu_net_leaves": net_leaves_to_jax(state.nets, state.opt.nu[k:]),
         "count": state.opt.count, "step": state.step,
         "dropped_hwm": state.dropped_hwm, "bad_steps": state.bad_steps,
         "alive": n(state.alive),

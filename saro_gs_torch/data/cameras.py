@@ -2,13 +2,15 @@
 scripts/make_synth_scene.py).
 
 Host-side pose and intrinsics in numpy, with ``raster_params(device)``
-producing the tensors the rasterizer takes.  Matrix conventions: row-vector,
-GL projection with the (f+n)/(f-n) variant, znear=0.01, zfar=100.
+producing the tensors the rasterizer takes, and a lazily decoded ground
+truth image.  Matrix conventions: row-vector, GL projection with the
+(f+n)/(f-n) variant, znear=0.01, zfar=100 (scene/cameras.py:84-101).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +33,10 @@ class Camera:
     height: int
     timestamp: float = 0.0
     image_name: str = ""
+    image_path: Optional[str] = None
     cx_ratio: float = 0.0      # principal point offsets in [-0.5, 0.5]
     cy_ratio: float = 0.0
+    _image: Optional[np.ndarray] = None   # [3,H,W] in [0,1], set_image
 
     def __post_init__(self):
         wv = math3d.world_to_view_matrix(self.R, self.T)
@@ -56,6 +60,97 @@ class Camera:
                             campos=t(self.camera_center),
                             tanfovx=t(self.tanfovx),
                             tanfovy=t(self.tanfovy))
+
+    def load_image(self, white_background: bool = False) -> np.ndarray:
+        """The ground truth at (height, width): [3, H, W] float32 in
+        [0, 1], decoded by PIL (resized with LANCZOS if needed), alpha
+        composited over the background as scene/dataset.py:57-97 does; the
+        image given to ``set_image`` if there is one."""
+        if self._image is not None:
+            return self._image
+        from PIL import Image
+        img = Image.open(self.image_path)
+        if img.size != (self.width, self.height):
+            img = img.resize((self.width, self.height), Image.LANCZOS)
+        arr = np.asarray(img).astype(np.float32) / 255.0
+        if arr.ndim == 2:
+            arr = arr[..., None].repeat(3, -1)
+        if arr.shape[-1] == 4:
+            bg = 1.0 if white_background else 0.0
+            arr = arr[..., :3] * arr[..., 3:4] + bg * (1 - arr[..., 3:4])
+        return np.transpose(arr, (2, 0, 1)).copy()
+
+    @property
+    def has_image(self) -> bool:
+        return self._image is not None or self.image_path is not None
+
+    def set_image(self, img: np.ndarray):
+        """Hold ``img`` ([3, H, W] float in [0, 1]) as the ground truth."""
+        self._image = img
+
+
+@dataclasses.dataclass
+class MiniCam:
+    """A camera given by its matrices only (scene/cameras.py:114-126)."""
+    width: int
+    height: int
+    fovx: float
+    fovy: float
+    znear: float
+    zfar: float
+    world_view: np.ndarray
+    full_proj: np.ndarray
+    timestamp: float = 0.0
+
+    def __post_init__(self):
+        inv = np.linalg.inv(self.world_view.astype(np.float64))
+        self.camera_center = inv[3, :3].astype(np.float32)
+
+    def raster_params(self, device=DEFAULT_DEVICE) -> CameraParams:
+        dev = resolve_device(device)
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        return CameraParams(viewmat=t(self.world_view),
+                            projmat=t(self.full_proj),
+                            campos=t(self.camera_center),
+                            tanfovx=t(math.tan(self.fovx * 0.5)),
+                            tanfovy=t(math.tan(self.fovy * 0.5)))
+
+
+def resolution_policy(orig_w: int, orig_h: int, resolution: int,
+                      resolution_scale: float = 1.0) -> Tuple[int, int]:
+    """The reference's resolution policy (utils/camera_utils.py:73-95):
+    -1 caps the width at 1600; 1/2/4/8 divide; other values set the
+    target width."""
+    if resolution in (1, 2, 4, 8):
+        return (round(orig_w / (resolution_scale * resolution)),
+                round(orig_h / (resolution_scale * resolution)))
+    if resolution == -1:
+        global_down = orig_w / 1600 if orig_w > 1600 else 1
+    else:
+        global_down = orig_w / resolution
+    scale = float(global_down) * float(resolution_scale)
+    return int(orig_w / scale), int(orig_h / scale)
+
+
+def camera_to_json(idx: int, cam: Camera) -> dict:
+    """A cameras.json entry (utils/camera_utils.py:292-312)."""
+    rt = np.zeros((4, 4))
+    rt[:3, :3] = cam.R.transpose()
+    rt[:3, 3] = cam.T
+    rt[3, 3] = 1.0
+    c2w = np.linalg.inv(rt)
+    return {
+        "id": idx,
+        "img_name": cam.image_name,
+        "width": cam.width,
+        "height": cam.height,
+        "position": c2w[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in c2w[:3, :3]],
+        "fy": math3d.fov2focal(cam.fovy, cam.height),
+        "fx": math3d.fov2focal(cam.fovx, cam.width),
+    }
 
 
 def ring_cameras(n_cams: int, radius: float = 4.2):

@@ -1,0 +1,223 @@
+"""Evaluation: metrics, the FPS protocol, render dumps (counterpart of
+eval.py; the reference's test.py:61-181).
+
+Per-view PSNR, SSIM and MS-SSIM by ``train/losses.py``; renders, ground
+truth and viridis depth (and the lifespan segmentation) as PNGs, written
+by PIL; the FPS protocol of the reference: 4 passes over the views, the
+first 10 frames of each discarded, each frame timed to a
+``torch.cuda.synchronize``.  LPIPS is left out, as the JAX package leaves
+it out when no weights exist (its ``LPIPS-alex`` is then None).
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+from .data.cameras import Camera
+from .models import gaussians as gm
+from .render import test_render
+from .train import losses
+
+
+def save_png(path: str, img: np.ndarray):
+    """img [3, H, W] or [H, W] float in [0, 1]."""
+    from PIL import Image
+    if img.ndim == 3:
+        arr = (np.clip(np.transpose(img, (1, 2, 0)), 0, 1)
+               * 255).astype(np.uint8)
+    else:
+        arr = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    Image.fromarray(arr).save(path)
+
+
+def viridis(x: np.ndarray) -> np.ndarray:
+    """A small viridis colormap for the depth dumps: x in [0, 1] ->
+    [3, H, W]."""
+    anchors = np.array([
+        [0.267, 0.005, 0.329], [0.283, 0.141, 0.458], [0.254, 0.265, 0.530],
+        [0.207, 0.372, 0.553], [0.164, 0.471, 0.558], [0.128, 0.567, 0.551],
+        [0.135, 0.659, 0.518], [0.267, 0.749, 0.441], [0.478, 0.821, 0.318],
+        [0.741, 0.873, 0.150], [0.993, 0.906, 0.144]])
+    x = np.clip(x, 0, 1) * (len(anchors) - 1)
+    i0 = np.floor(x).astype(int)
+    i1 = np.clip(i0 + 1, 0, len(anchors) - 1)
+    f = (x - i0)[..., None]
+    rgb = anchors[i0] * (1 - f) + anchors[i1] * f
+    return np.moveaxis(rgb, -1, 0)
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Evaluator:
+    """Renders and scores camera sets of ``scene``'s model on the scene's
+    device."""
+
+    def __init__(self, cfg, scene):
+        self.cfg = cfg
+        self.scene = scene
+        self.device = scene.device
+        self.mcfg = cfg.model_config()
+        self.rcfg = cfg.raster_config()
+        self.bg = torch.tensor(
+            [1.0, 1.0, 1.0] if cfg.white_background else [0.0, 0.0, 0.0],
+            device=self.device)
+
+    def render(self, cam: Camera, points, nets, alive, feat, sh_degree,
+               require_segment=False):
+        return test_render(cam.raster_params(self.device), cam.timestamp,
+                           points, nets, alive, self.mcfg, self.scene.fstatic,
+                           self.bg, width=cam.width, height=cam.height,
+                           sh_degree=sh_degree, rcfg=self.rcfg, feat=feat,
+                           require_segment=require_segment)
+
+    def render_set(self, name: str, cameras: List[Camera],
+                   points: gm.GaussianParams, nets: gm.DeformNets,
+                   alive, iteration="best", require_segment=False,
+                   save_every: int = 1, measure_fps: bool = True,
+                   has_gt: bool = True):
+        """test.py:61-181: dumps under <model>/<name>/ours_<iteration>/,
+        means in <iteration>_runtimeresults.json, per-view values in
+        <iteration>_runtimeperview.json."""
+        cfg = self.cfg
+        out_root = os.path.join(cfg.model_path, name, f"ours_{iteration}")
+        for sub in ("renders", "gt", "depth") + (
+                ("segment",) if require_segment else ()):
+            os.makedirs(os.path.join(out_root, sub), exist_ok=True)
+        sh_degree = self.mcfg.sh_degree
+        # the field features do not depend on the view (get_deformfeature,
+        # saro_gaussian.py:863)
+        with torch.no_grad():
+            feat = gm.field_feat(points, nets, self.mcfg, self.scene.fstatic)
+        # instance capacity for this model: one probe frame, 30% headroom,
+        # a power of two
+        probe, _ = self.render(cameras[0], points, nets, alive, feat,
+                               sh_degree)
+        need = probe.num_instances + probe.num_dropped
+        self.rcfg = self.rcfg._replace(
+            max_instances=1 << max(int(need * 1.3) - 1, 1).bit_length())
+
+        psnrs, ssims, msssims = [], [], []
+        for idx, cam in enumerate(cameras):
+            out, seg = self.render(cam, points, nets, alive, feat, sh_degree,
+                                   require_segment)
+            img_t = torch.clamp(out.color, 0, 1)
+            img = img_t.cpu().numpy()
+            if has_gt and cam.has_image:
+                gt = cam.load_image(cfg.white_background)
+                gt_t = torch.as_tensor(gt, device=self.device)
+                psnrs.append(float(losses.psnr(img_t, gt_t)))
+                ssims.append(float(losses.ssim(img_t, gt_t)))
+                msssims.append(float(losses.msssim(img_t, gt_t)))
+                if idx % save_every == 0:
+                    save_png(os.path.join(out_root, "gt", f"{idx:05d}.png"),
+                             gt)
+            if idx % save_every == 0:
+                save_png(os.path.join(out_root, "renders", f"{idx:05d}.png"),
+                         img)
+                depth = out.depth.cpu().numpy()
+                dmin, dmax = depth.min(), depth.max()
+                dn = (depth - dmin) / max(dmax - dmin, 1e-6)
+                save_png(os.path.join(out_root, "depth", f"{idx:05d}.png"),
+                         viridis(dn))
+                if seg is not None:
+                    save_png(os.path.join(out_root, "segment",
+                                          f"{idx:05d}.png"),
+                             torch.clamp(seg.color, 0, 1).cpu().numpy())
+
+        # the FPS protocol (test.py:150-163)
+        fps = None
+        if measure_fps and len(cameras) > 10:
+            warmup = 10
+            durations = []
+            for _ in range(4):
+                spent = 0.0
+                for i, cam in enumerate(cameras):
+                    _sync(self.device)
+                    t0 = time.perf_counter()
+                    self.render(cam, points, nets, alive, feat, sh_degree)
+                    _sync(self.device)
+                    if i >= warmup:
+                        spent += time.perf_counter() - t0
+                durations.append(spent / (len(cameras) - warmup))
+            fps = 1.0 / float(np.mean(durations))
+
+        results = {
+            "PSNR": float(np.mean(psnrs)) if psnrs else None,
+            "SSIM": float(np.mean(ssims)) if ssims else None,
+            "MS-SSIM": float(np.mean(msssims)) if msssims else None,
+            "LPIPS-alex": None,
+            "LPIPS-weights": None,
+            "FPS": fps,
+            "num_views": len(cameras),
+        }
+        with open(os.path.join(cfg.model_path,
+                               f"{iteration}_runtimeresults.json"),
+                  "w") as f:
+            json.dump(results, f, indent=True)
+        with open(os.path.join(cfg.model_path,
+                               f"{iteration}_runtimeperview.json"),
+                  "w") as f:
+            json.dump({"PSNR": dict(enumerate(psnrs)),
+                       "SSIM": dict(enumerate(ssims))}, f, indent=True)
+        return results
+
+
+def quick_test_report(trainer, cameras: List[Camera], max_views=None,
+                      histograms: bool = True) -> dict:
+    """Validation during training over ``cameras`` (training_report,
+    train.py:305-438), at the trainer's active SH degree: the means of
+    L1, PSNR, SSIM and MS-SSIM, the per-view PSNR series (:372-381) and
+    the opacity and t-centre histograms of the live points
+    (:391-408)."""
+    st = trainer.state
+    ev = Evaluator(trainer.cfg, trainer.scene)
+    with torch.no_grad():
+        feat = gm.field_feat(st.points, st.nets, trainer.mcfg,
+                             trainer.scene.fstatic)
+    per_view = {"psnr": [], "ssim": [], "msssim": [], "l1": []}
+    for cam in cameras[:max_views]:
+        out, _ = ev.render(cam, st.points, st.nets, st.alive, feat,
+                           trainer.active_sh_degree)
+        img = torch.clamp(out.color, 0, 1)
+        gt = torch.as_tensor(cam.load_image(trainer.cfg.white_background),
+                             device=trainer.device)
+        v = torch.stack([losses.psnr(img, gt), losses.ssim(img, gt),
+                         losses.msssim(img, gt),
+                         (img - gt).abs().mean()]).tolist()
+        for key, x in zip(per_view, v):
+            per_view[key].append(x)
+    pv = np.asarray(per_view["psnr"])
+    rep = {
+        "PSNR": float(pv.mean()), "SSIM": float(np.mean(per_view["ssim"])),
+        "MS-SSIM": float(np.mean(per_view["msssim"])),
+        "L1": float(np.mean(per_view["l1"])),
+        "PSNR_per_view": [round(v, 3) for v in per_view["psnr"]],
+        "PSNR_spread": {"std": float(pv.std()), "min": float(pv.min()),
+                        "max": float(pv.max())},
+    }
+    if histograms:
+        alive = st.alive.cpu().numpy() > 0
+        opac = gm.get_opacity(st.points)[:, 0].cpu().numpy()[alive]
+        tc = gm.get_temporal_pos(st.points,
+                                 trainer.mcfg)[:, 0].cpu().numpy()[alive]
+        rep["opacity_hist"] = np.histogram(
+            opac, bins=20, range=(0.0, 1.0))[0].tolist()
+        tc_counts, tc_edges = np.histogram(tc, bins=20)
+        rep["tcenter_hist"] = {"counts": tc_counts.tolist(),
+                               "range": [float(tc_edges[0]),
+                                         float(tc_edges[-1])]}
+    return rep
+
+
+def quick_test_psnr(trainer, cameras: List[Camera], max_views=None) -> float:
+    """The mean PSNR of ``quick_test_report``."""
+    return quick_test_report(trainer, cameras, max_views,
+                             histograms=False)["PSNR"]

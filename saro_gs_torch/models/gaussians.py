@@ -6,17 +6,19 @@ and the four MLP heads are one ``DeformNets`` module.  ``deform`` is the
 temporal model: residual-field features, lifespan and survival state, the
 heads' motion/rotation/scale/SH residuals (saro_gaussian.py:779-847);
 ``temporal_integral`` is the closed-form opacity integral that prunes and
-scales learning rates.
+scales learning rates.  ``init_nets`` and ``create_from_pcd`` make a new
+model from a point cloud, their draws from a caller's ``torch.Generator``.
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..ops import math3d
+from ..ops import knn, math3d, sh
 from . import field as field_mod
 from .mlp import MLP
 
@@ -60,7 +62,9 @@ HEADS = ("motion_mlp", "rot_mlp", "opacity_mlp", "shs_mlp")
 
 
 class DeformNets(nn.Module):
-    """HexPlane field + the four MLP heads (saro_gaussian.py:93-110)."""
+    """HexPlane field + the four MLP heads (saro_gaussian.py:93-110).  The
+    heads are allocated, not initialized: ``init_nets`` or ``convert.py``
+    fills them."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -258,3 +262,74 @@ def temporal_integral(params: GaussianParams, nets: DeformNets,
             # the integral of its unclipped mass
             integral = integral / torch.clamp(p1 - p2, 0.25, 1.0)
         return integral
+
+
+# ---- creation (saro_gaussian.py:159-218) ------------------------------------
+
+class PointCloud(NamedTuple):
+    points: np.ndarray   # [N, 3]
+    colors: np.ndarray   # [N, 3] in [0, 1]
+    times: Optional[np.ndarray] = None   # [N, 1]
+
+
+def init_nets(cfg: ModelConfig, generator: torch.Generator,
+              device) -> DeformNets:
+    """New nets on ``device``: zero planes (hexplane.py:78-86) and heads
+    drawn as the reference's ``nn.Linear`` default, U(+-1/sqrt(fan_in))
+    for weights and biases (the JAX package's mlp.init_mlp), from
+    ``generator`` (a CPU generator, so every device gets the same
+    numbers)."""
+    nets = DeformNets(cfg)
+    with torch.no_grad():
+        for p in nets.field.planes:
+            p.zero_()
+        for head in HEADS:
+            for layer in getattr(nets, head).layers:
+                bound = 1.0 / math.sqrt(layer.in_features)
+                for p in (layer.weight, layer.bias):
+                    p.copy_((torch.rand(p.shape, generator=generator)
+                             * 2.0 - 1.0) * bound)
+    return nets.to(device)
+
+
+def create_from_pcd(pcd: PointCloud, capacity: int, cfg: ModelConfig,
+                    generator: torch.Generator, device
+                    ) -> tuple[GaussianParams, torch.Tensor]:
+    """Parameters from a point cloud, padded to ``capacity`` rows
+    (saro_gaussian.py:159-218) -> (params, alive [capacity] f32).
+
+    Log-scales from the mean squared 3-NN distance clamped to [-10, 1],
+    temporal positions U(0, 1) from ``generator``, SH DC from RGB, opacity
+    logit of 0.1.  Unused rows: xyz 0, scaling -10, opacity -10, identity
+    quaternion, temporal_pos 0.5."""
+    n = pcd.points.shape[0]
+    if n > capacity:
+        raise ValueError(f"{n} points exceed the capacity {capacity}")
+    f32 = torch.float32
+    pts = torch.as_tensor(np.asarray(pcd.points, np.float32), device=device)
+    d2 = torch.clamp_min(knn.mean_sq_dist_to_3nn(pts), 1e-7)
+    scales = torch.clamp(torch.log(torch.sqrt(d2)), -10.0, 1.0)[:, None] \
+        .expand(n, 3)
+
+    def pad(x, fill=0.0):
+        out = torch.full((capacity,) + tuple(x.shape[1:]), fill, dtype=f32,
+                         device=device)
+        out[:n] = x
+        return out
+
+    colors = torch.as_tensor(np.asarray(pcd.colors, np.float32),
+                             device=device)
+    dc = sh.rgb2sh(colors).reshape(n, 1, 3)
+    rots = torch.zeros((capacity, 4), dtype=f32, device=device)
+    rots[:, 0] = 1.0
+    opac = math3d.inverse_sigmoid(0.1 * torch.ones((n, 1), dtype=f32,
+                                                   device=device))
+    times = torch.rand((n, 1), generator=generator).to(device)
+    params = GaussianParams(
+        xyz=pad(pts), features_dc=pad(dc),
+        features_rest=torch.zeros((capacity, 15, 3), dtype=f32,
+                                  device=device),
+        scaling=pad(scales, fill=-10.0), rotation=rots,
+        opacity=pad(opac, fill=-10.0), temporal_pos=pad(times, fill=0.5))
+    alive = (torch.arange(capacity, device=device) < n).to(f32)
+    return params, alive

@@ -1,9 +1,11 @@
 """The deformation heads: plain Linear-ReLU stacks (counterpart of
 models/mlp.py; the reference's saro_gaussian.py:104-110).
 
-``nn.Linear``'s default initialization is the reference's (uniform in
-+-1/sqrt(fan_in) for weight and bias).  The JAX package stores weights as
-[in, out]; ``nn.Linear`` keeps [out, in], and ``convert.py`` transposes.
+The layers are allocated, not initialized (``nn.Linear``'s own init draws
+from torch's global RNG): ``gaussians.init_nets`` fills them with the
+reference's distribution, or ``convert.py`` loads them.  The JAX package
+stores weights as [in, out]; ``nn.Linear`` keeps [out, in], and
+``convert.py`` transposes.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ class MLP(nn.Module):
         """sizes = [in, h1, ..., out]; ReLU between layers."""
         super().__init__()
         self.layers = nn.ModuleList(
-            nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+            nn.utils.skip_init(nn.Linear, a, b)
+            for a, b in zip(sizes[:-1], sizes[1:]))
         self.final_activation = final_activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -210,3 +210,7 @@ def compute_cov2d(mean: torch.Tensor, focal_x, focal_y, tan_fovx, tan_fovy,
                                  focal_x, focal_y, tan_fovx, tan_fovy,
                                  cov6, viewmat)
     return torch.stack([a, b, c], dim=-1)
+
+
+def inverse_sigmoid(x):
+    return torch.log(x / (1 - x))

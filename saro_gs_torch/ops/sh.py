@@ -62,3 +62,12 @@ def eval_sh_color_cols(degree: int, shs: torch.Tensor, px, py, pz, campos):
     the clamp cut."""
     raw = sh_raw_cols(degree, shs, px, py, pz, campos)
     return torch.clamp_min(raw, 0.0), raw < 0
+
+
+def rgb2sh(rgb):
+    """DC-band conversion (utils/sh_utils.py:114); tensors or arrays."""
+    return (rgb - 0.5) / SH_C0
+
+
+def sh2rgb(shs):
+    return shs * SH_C0 + 0.5

@@ -18,8 +18,10 @@ from saro_gs_torch.models import field as field_mod
 from saro_gs_torch.models import gaussians as gm
 from saro_gs_torch.ops.projection import CameraParams
 from saro_gs_torch.ops.rasterize import RasterConfig, rasterize
+from saro_gs_torch.models import densify as dens
 from saro_gs_torch.train import losses
 from saro_gs_torch.train import step as step_mod
+from saro_gs_torch.train import trainer as trainer_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -484,8 +486,7 @@ def _toy_train_state(device, count=600):
         rotation=t(rng.normal(0, 1, (count, 4))),
         opacity=t(rng.uniform(-2.0, 4.0, (count, 1))),
         temporal_pos=t(rng.uniform(0, 1, (count, 1))))
-    torch.manual_seed(0)
-    nets = gm.DeformNets(mcfg)
+    nets = gm.init_nets(mcfg, torch.Generator().manual_seed(0), "cpu")
     with torch.no_grad():
         for p in nets.field.planes:
             p.copy_(torch.as_tensor(rng.normal(0, 0.3, tuple(p.shape))
@@ -546,3 +547,114 @@ def test_train_step_cuda_matches_cpu(dev):
     assert m_a == m_b
     for a, b in zip(mu_a + p_a, mu_b + p_b):
         assert torch.equal(a, b)
+
+
+def _densify_inputs(device, cap=4096, seed=3):
+    """A densify pass's inputs at ``cap`` rows, a quarter dead (zero
+    quaternions, as grow_capacity leaves them), on ``device``."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    p = dict(
+        xyz=rng.uniform(-1, 1, (cap, 3)) * [1, 1, 4] + [0, 0, 4.5],
+        features_dc=rng.normal(0, 0.5, (cap, 1, 3)),
+        features_rest=rng.normal(0, 0.1, (cap, 15, 3)),
+        scaling=np.log(rng.uniform(1e-4, 0.3, (cap, 3))),
+        rotation=rng.normal(0, 1, (cap, 4)),
+        opacity=rng.uniform(-6, 4, (cap, 1)),
+        temporal_pos=rng.uniform(0, 1, (cap, 1)))
+    alive = (rng.rand(cap) > 0.25).astype(f32)
+    p["rotation"][alive == 0] = 0.0
+    denom = rng.randint(0, 4, (cap, 1))
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, f32), device=device)
+    params = gm.GaussianParams(**{k: t(v) for k, v in p.items()})
+    mu = gm.GaussianParams(*[t(rng.normal(0, 1e-3, x.shape)) for x in params])
+    nu = gm.GaussianParams(*[t(rng.uniform(0, 1e-6, x.shape))
+                             for x in params])
+    aux = dens.DensifyAux(
+        xyz_grad_accum=t(rng.uniform(0, 4e-4, (cap, 1)) * denom),
+        denom=t(denom), max_radii2d=t(rng.uniform(0, 40, cap)))
+    samples = [t(rng.normal(size=(cap, 3))) for _ in range(2)]
+    return (params, mu, nu, t(alive), aux, samples,
+            t(rng.uniform(1, 3, (cap, 1))), t(rng.uniform(0, 1, (cap, 1))))
+
+
+def test_densify_and_grow_cuda_match_cpu(dev):
+    """densify_pruneclone (clone, split, every prune) and grow_state on the
+    card against the same calls on the CPU with the same samples: integer
+    results equal, floats within 1e-6."""
+    kw = dict(grad_threshold=2e-4, min_opacity=0.02, extent=2.0,
+              percent_dense=0.05, max_screen_size=30, min_intergral=0.1,
+              prune_z=True, prune_big_ws=True, min_scale_abs=1e-3)
+    res = []
+    for d in ("cpu", dev):
+        params, mu, nu, alive, aux, samples, inv, integral = \
+            _densify_inputs(d)
+        r = dens.densify_pruneclone(params, mu, nu, alive, aux, samples,
+                                    inv_integral=inv, integral=integral,
+                                    **kw)
+        state = step_mod.init_state(r.params, gm.init_nets(
+            gm.ModelConfig(deform_hidden_dim=16, field=field_mod.FieldConfig(
+                resolution=(8, 8, 8, 4), out_dim=4)),
+            torch.Generator().manual_seed(0), d), r.alive)
+        state = state._replace(opt=state.opt._replace(
+            mu=list(r.mu) + state.opt.mu[7:],
+            nu=list(r.nu) + state.opt.nu[7:]))
+        grown = trainer_mod.grow_state(state)
+        res.append((r, grown))
+    (rc, gc), (rg, gg) = res
+    for f in ("n_cloned", "n_split", "n_pruned", "overflowed"):
+        assert int(getattr(rc, f)) == int(getattr(rg, f)), f
+    assert int(rg.n_cloned) > 0 and int(rg.n_split) > 0
+    assert int(rg.n_pruned) > 0
+    assert torch.equal(rc.alive, rg.alive.cpu())
+
+    def close(a, b):
+        b = b.cpu()
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.dtype.is_floating_point:
+            assert torch.allclose(b, a, rtol=1e-6, atol=1e-7)
+        else:
+            assert torch.equal(a, b)
+    for a, b in zip(list(rc.params) + list(rc.mu) + list(rc.nu),
+                    list(rg.params) + list(rg.mu) + list(rg.nu)):
+        close(a, b)
+    for a, b in zip(step_mod.param_leaves(gc.points, gc.nets) + gc.opt.mu
+                    + gc.opt.nu + list(gc.aux)
+                    + [gc.alive, gc.inv_integral, gc.inv_integral_densify],
+                    step_mod.param_leaves(gg.points, gg.nets) + gg.opt.mu
+                    + gg.opt.nu + list(gg.aux)
+                    + [gg.alive, gg.inv_integral, gg.inv_integral_densify]):
+        close(a.detach(), b.detach())
+    assert gg.alive.shape[0] == 2 * rg.alive.shape[0]
+
+
+def test_knn_100k_points_on_the_card(dev):
+    """mean_sq_dist_to_3nn over 100,000 points (the Blender init cloud's
+    size) in under a second on the card, against the same distances on
+    the CPU for 5,000 of them (each against all 100,000, in the same
+    difference form)."""
+    import time
+    from saro_gs_torch.ops import knn
+    pts = torch.as_tensor(np.random.RandomState(666).uniform(
+        -1.3, 1.3, (100_000, 3)).astype(np.float32))
+    gpu = pts.to(dev)
+    knn.mean_sq_dist_to_3nn(gpu[:4096])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = knn.mean_sq_dist_to_3nn(gpu)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert secs < 1.0, secs
+    rows = torch.as_tensor(np.random.RandomState(1).choice(
+        100_000, 5000, replace=False))
+    ref = []
+    for chunk in rows.split(500):
+        q = pts[chunk]
+        d2 = ((q[:, None, 0] - pts[None, :, 0]) ** 2
+              + (q[:, None, 1] - pts[None, :, 1]) ** 2
+              + (q[:, None, 2] - pts[None, :, 2]) ** 2)
+        d2[torch.arange(chunk.shape[0]), chunk] = float("inf")
+        ref.append(torch.topk(d2, 3, dim=1, largest=False).values.mean(1))
+    assert torch.allclose(out.cpu()[rows], torch.cat(ref), rtol=1e-6, atol=0)

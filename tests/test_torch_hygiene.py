@@ -71,6 +71,34 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert cam.raster_params(device="cpu").viewmat.device.type == "cpu"
 
 
+def test_trainer_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """Scene and the CLI's --device default to cuda and refuse it without
+    a card, before reading any data; Trainer and Evaluator run where
+    their scene's model lives, so they default to it too."""
+    import inspect
+    import types
+
+    from saro_gs_torch import cli, scene
+    from saro_gs_torch.config import load_config
+    from saro_gs_torch.eval import Evaluator
+    from saro_gs_torch.train.trainer import Trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert inspect.signature(scene.Scene).parameters["device"].default \
+        == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        scene.Scene(load_config(source_path=str(tmp_path / "none")))
+    model = str(tmp_path / "model")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.train_main(["-s", str(tmp_path / "none"), "-m", model])
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.test_main(["-m", model])
+    for cls in (Trainer, Evaluator):
+        assert "device" not in inspect.signature(cls).parameters
+    cpu_scene = types.SimpleNamespace(device=torch.device("cpu"))
+    ev = Evaluator(load_config(), cpu_scene)
+    assert ev.device == cpu_scene.device and ev.bg.device.type == "cpu"
+
+
 def test_rasterize_refuses_gradients():
     """A render without n_contrib (need_aux=False) is forward-only: it
     refuses inputs that require gradients; with need_aux it takes them."""
