@@ -67,8 +67,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      stage (loop, loader and control included) beside train_step_core
      alone, ms per densify pass and capacity growth, the card's busy share
      over 5 iterations, the kernels' launches over 8;
- 12. one JSON line of results, one of the kernels, then the card line,
-     then the result line {"ok": true, "device": {...}}.
+ 12. the arena trainer from disk: phase 11's cameras, ground truth (as
+     8-bit PNGs) and init cloud written as a Blender/D-NeRF dataset under
+     build/chip_smoke_disk/, then trained with phase 11's schedule by
+     cli.train_main (--quiet) through the blender reader and the native
+     decoder, no reader of its own.  Where png.h and jpeglib.h are found,
+     the native library must build, decode the PNGs within 1e-6 of PIL,
+     give nn distances within rtol 1e-5, atol 1e-6 of ops/knn.py on the
+     card, and read a COLMAP model as the Python readers do; without them
+     a line says so and the Python paths run.  Checked: no bad step,
+     nothing dropped, the last loss logged before the opacity reset below
+     0.7 of the first, every kernel launched in the run, LPIPS-alex (the
+     seed-0 fixture) at 1352x1014 on the card within 1e-4 relative of the
+     CPU's on two views, and cli.test_main's report carrying a finite
+     LPIPS-alex from the fixture, its PSNR and SSIM within 1e-6 and its
+     LPIPS within 1e-5 of the reloaded checkpoint's.  Measured: the scene
+     build, the loader's decode per batch (native and PIL), it/s over the
+     dynamic stage beside phase 11's, the largest relative difference
+     from phase 11's logged losses (the PNGs quantise the ground truth),
+     LPIPS ms a view;
+ 13. one JSON line of results, one of each trainer phase, one of the
+     kernels, then the card line, then the result line
+     {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Times are the card's own: read them beside the
 card's name and power limit printed with them.
@@ -124,6 +144,8 @@ ARENA_CONFIG = os.path.join(HERE, "configs", "synth", "arena.json")
 # config and model go (build/ is git-ignored)
 N_CAMS, DURATION, N_INIT = 21, 50, 65_000
 TRAIN_DIR = os.path.join(HERE, "build", "chip_smoke")
+# phase 12's dataset, config and model (git-ignored)
+DISK_DIR = os.path.join(HERE, "build", "chip_smoke_disk")
 LOADER = "chip_smoke_arena"
 SCHEDULE = dict(iterations=150, static_iteration=50, densify_from_iter=60,
                 densification_interval=40, densify_until_iter=140,
@@ -412,7 +434,319 @@ def trainer_phase(params, nets, alive, fstatic, mcfg, rcfg, dev, tk):
         "render_sh3": final, "test_main": test_main,
         "card_busy_ms_per_it": busy_ms or None,
         "traced_ms_per_it": traced_ms,
-        "launches_8_its": launches8}, launches
+        "launches_8_its": launches8}, launches, info, {
+            i: h["loss"] for i, h in hist.items()}
+
+
+def header_found(name):
+    """Whether the host compiler finds ``<name>`` (the native library's
+    image decoders need png.h and jpeglib.h)."""
+    try:
+        res = subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                             input=f"#include <{name}>\n", text=True,
+                             capture_output=True, timeout=60)
+    except OSError:
+        return False
+    return res.returncode == 0
+
+
+def write_arena_dataset(info, root):
+    """Phase 12's dataset on disk, in the Blender/D-NeRF layout: phase
+    11's cameras as transforms_{train,test}.json (``time`` chosen so the
+    reader's time * (d - 1) / d gives phase 11's timestamps), their ground
+    truth as 8-bit PNGs, and phase 11's init cloud as points3d.ply, which
+    the reader keeps.  Returns the PNG paths, camera 0 (the test view)
+    first."""
+    from PIL import Image
+    from saro_gs_torch.data import cameras, ply
+    c2ws = cameras.ring_cameras(N_CAMS)
+    frames = {"train": [], "test": []}
+    paths = []
+    for i, cam in enumerate(list(info.test_cameras)
+                            + list(info.train_cameras)):
+        split = "test" if i == 0 else "train"
+        name = f"{split}/r_{i:02d}"
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        rgb = np.transpose(np.clip(cam.load_image(True), 0, 1), (1, 2, 0))
+        paths.append(os.path.join(root, name + ".png"))
+        Image.fromarray((rgb * 255 + 0.5).astype(np.uint8)).save(paths[-1])
+        frames[split].append({
+            "file_path": name, "transform_matrix": c2ws[i].tolist(),
+            "time": ((7 * i) % DURATION) / (DURATION - 1)})
+    for split, fr in frames.items():
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.85, "frames": fr}, f)
+    pcd = info.point_cloud
+    ply.store_point_cloud(os.path.join(root, "points3d.ply"),
+                          np.concatenate([pcd.points, pcd.times], axis=1),
+                          pcd.colors * 255)
+    return paths
+
+
+def native_checks(info, paths, root, dev):
+    """Phase 12's checks of the native library on the card's host: its
+    build, the batch PNG decode against PIL, nn distances against
+    ops/knn.py on the card, and the COLMAP binary readers against the
+    Python ones.  Returns the results, or None (with SARO_NATIVE=0 set
+    for the rest of the run) where the image headers are missing."""
+    import torch
+    from saro_gs_torch import native
+    from saro_gs_torch.data import cameras, colmap
+    from saro_gs_torch.ops import knn
+    # built here, on this host, whatever a copied build/ holds
+    if os.path.exists(native.SO_PATH):
+        os.remove(native.SO_PATH)
+    headers = {h: header_found(h) for h in ("png.h", "jpeglib.h")}
+    if not all(headers.values()):
+        # the build must then fail loudly, and the run goes on with
+        # SARO_NATIVE=0
+        try:
+            native.build()
+        except RuntimeError as e:
+            err = next((ln for ln in str(e).splitlines()
+                        if "fatal error" in ln), str(e).splitlines()[0])
+        else:
+            fail("native: the build passed without the image headers")
+        print(f"native: image headers missing on this host {headers}; the "
+              f"build raises ({err.strip()}); the Python paths run "
+              "(SARO_NATIVE=0)", flush=True)
+        os.environ["SARO_NATIVE"] = "0"
+        return None
+    build_s = native.build()
+    check(native.available(), "native: the library did not load")
+    log(f"native: built in {build_s:.2f} s ({native.SO_PATH})")
+    t0 = time.perf_counter()
+    imgs = native.load_images(paths, W, H, (1.0, 1.0, 1.0))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    check(imgs is not None, "native: load_images refused the PNGs")
+    t0 = time.perf_counter()
+    pil = np.stack([cameras.load_image_pil(p, W, H, True) for p in paths])
+    pil_ms = (time.perf_counter() - t0) * 1e3
+    img_err = float(np.abs(imgs - pil).max())
+    check(img_err <= 1e-6, f"native: decode differs from PIL by {img_err}")
+    pts = np.asarray(info.point_cloud.points, np.float32)
+    t0 = time.perf_counter()
+    nn = native.nn_distance(pts)
+    nn_ms = (time.perf_counter() - t0) * 1e3
+    ref = torch.sqrt(knn.knn_sq_dists(torch.as_tensor(pts, device=dev),
+                                      1)[:, 0]).cpu().numpy()
+    nn_err = float(np.max(np.abs(nn - ref) / (1e-6 + 1e-5 * np.abs(ref))))
+    check(nn_err <= 1.0, f"native: nn_distance outside rtol 1e-5, atol "
+          f"1e-6 of ops/knn ({nn_err} of the tolerance)")
+    # a COLMAP model of phase 11's cameras and cloud, read both ways
+    sparse = os.path.join(root, "colmap")
+    os.makedirs(sparse)
+    cams = list(info.test_cameras) + list(info.train_cameras)
+    focal = W / (2 * math.tan(0.85 / 2))
+    colmap.write_cameras_binary(
+        {1: colmap.ColmapCamera(1, "PINHOLE", W, H,
+                                np.array([focal, focal, W / 2, H / 2]))},
+        os.path.join(sparse, "cameras.bin"))
+    colmap.write_images_binary(
+        {i + 1: colmap.ColmapImage(i + 1, colmap.rotmat2qvec(c.R.T), c.T, 1,
+                                   f"r_{i:02d}.png", None, None)
+         for i, c in enumerate(cams)}, os.path.join(sparse, "images.bin"))
+    colmap.write_points3d_binary(
+        info.point_cloud.points,
+        (info.point_cloud.colors * 255).astype(np.uint8),
+        os.path.join(sparse, "points3D.bin"))
+
+    def read_all():
+        return (colmap.read_cameras_binary(os.path.join(sparse,
+                                                        "cameras.bin")),
+                colmap.read_images_binary(os.path.join(sparse,
+                                                       "images.bin")),
+                colmap.read_points3d_binary(os.path.join(sparse,
+                                                         "points3D.bin")))
+    t0 = time.perf_counter()
+    nat = read_all()
+    colmap_ms = (time.perf_counter() - t0) * 1e3
+    os.environ["SARO_NATIVE"] = "0"
+    try:
+        t0 = time.perf_counter()
+        py = read_all()
+        colmap_py_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del os.environ["SARO_NATIVE"]
+    same = (nat[0].keys() == py[0].keys() and nat[1].keys() == py[1].keys()
+            and all(np.array_equal(nat[0][k].params, py[0][k].params)
+                    and nat[0][k][:4] == py[0][k][:4] for k in nat[0])
+            and all(np.array_equal(nat[1][k].qvec, py[1][k].qvec)
+                    and np.array_equal(nat[1][k].tvec, py[1][k].tvec)
+                    and nat[1][k].name == py[1][k].name for k in nat[1])
+            and all(np.array_equal(a, b) for a, b in zip(nat[2], py[2])))
+    check(same, "native: the COLMAP readers differ from Python's")
+    out = {"build_s": build_s, "png_decode_ms": batch_ms,
+           "pil_decode_ms": pil_ms, "images": len(paths),
+           "decode_max_abs_err": img_err, "nn_points": int(pts.shape[0]),
+           "nn_ms": nn_ms, "nn_err_of_tolerance": nn_err,
+           "colmap_points": int(nat[2][0].shape[0]),
+           "colmap_ms": colmap_ms, "colmap_python_ms": colmap_py_ms}
+    log(f"native: {json.dumps(out)}")
+    return out
+
+
+def disk_trainer_phase(info, losses11, dyn11, dev, tk):
+    """Phase 12: phase 11's scene written to disk and trained from there
+    through the blender reader, the loader's decode and cli.train_main;
+    returns (the "trainer_disk" results, the kernels' launches over the
+    run)."""
+    import torch
+    from saro_gs_torch import cli, render, scene
+    from saro_gs_torch.config import load_config
+    from saro_gs_torch.train import losses, lpips
+
+    def sync():
+        torch.cuda.synchronize()
+
+    check(importlib.util.find_spec("PIL") is not None,
+          "trainer_disk: PIL is needed to write and size the PNGs")
+    t_phase = t0 = time.perf_counter()
+    shutil.rmtree(DISK_DIR, ignore_errors=True)
+    root = os.path.join(DISK_DIR, "scene")
+    paths = write_arena_dataset(info, root)
+    write_s = time.perf_counter() - t0
+    log(f"trainer_disk: {len(paths)} PNGs at {W}x{H} and points3d.ply "
+        f"written in {write_s:.1f} s under {root}")
+    nat = native_checks(info, paths, DISK_DIR, dev)
+
+    with open(ARENA_CONFIG) as f:
+        config = json.load(f)
+    config.update(SCHEDULE, loader="blender")
+    cfg_path = os.path.join(DISK_DIR, "arena_150.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    # the scene as the trainer builds it, and the loader's decode
+    t0 = time.perf_counter()
+    sc = scene.Scene(load_config(cfg_path, source_path=root,
+                                 model_path=os.path.join(DISK_DIR, "probe")),
+                     device=dev)
+    sync()
+    scene_s = time.perf_counter() - t0
+    bsz, n_train = config["batch"], len(sc.info.train_cameras)
+    loader = sc.train_loader(bsz, num_workers=1)
+    try:
+        decode = {}
+        for mode in ("native", "python"):
+            if mode == "python":
+                os.environ["SARO_NATIVE"] = "0"
+            t0 = time.perf_counter()
+            for b in range(10):
+                loader._load_batch(np.arange(b * bsz, (b + 1) * bsz)
+                                   % n_train)
+            decode[mode] = (time.perf_counter() - t0) * 1e3 / 10
+            if mode == "python" and nat is not None:
+                del os.environ["SARO_NATIVE"]
+    finally:
+        loader.close()
+    del sc
+    log(f"trainer_disk: scene built in {scene_s:.2f} s; BatchLoader decode "
+        f"{decode['native']:.2f} ms a batch of {config['batch']} "
+        f"({'native' if nat else 'Python: no native library'}), "
+        f"{decode['python']:.2f} ms by PIL")
+
+    model = os.path.join(DISK_DIR, "model")
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    tr = cli.train_main(["-s", root, "--config", cfg_path, "-m", model,
+                         "--device", str(dev), "--quiet"])
+    sync()
+    run_s = time.perf_counter() - t0
+    launches = dict(tk.launches)
+    cfg = tr.cfg
+    hist = {h["it"]: h for h in tr.history}
+    st = tr.state
+    check(st.step == cfg.iterations, f"trainer_disk: stopped at {st.step}")
+    check(st.bad_steps == 0 and not any("bad_step" in h for h in tr.history),
+          f"trainer_disk: {st.bad_steps} bad steps")
+    check(not tr.overflows and st.dropped_hwm == 0,
+          f"trainer_disk: instances dropped: {tr.overflows}, "
+          f"{st.dropped_hwm}")
+    first, last = hist[1]["loss"], hist[cfg.iterations]["loss"]
+    before_reset = max(i for i in hist if i < cfg.opacity_reset_interval)
+    pre = hist[before_reset]["loss"]
+    check(pre < 0.7 * first,
+          f"trainer_disk: loss {first} -> {pre} (it {before_reset})")
+    check(all(launches[k] > 0 for k in launches),
+          f"trainer_disk: a kernel never launched in the run: {launches}")
+    dyn = (cfg.iterations - cfg.static_iteration) / (
+        hist[cfg.iterations]["elapsed_s"] - hist[cfg.static_iteration]
+        ["elapsed_s"])
+    common = sorted(set(hist) & set(losses11))
+    loss_diff = max(abs(hist[i]["loss"] - losses11[i]) / abs(losses11[i])
+                    for i in common)
+    log(f"trainer_disk: {cfg.iterations} iterations in {run_s:.1f} s, "
+        f"{dyn:.3f} it/s over the dynamic stage (phase 11: {dyn11:.3f}); "
+        f"loss {first:.5f} -> {pre:.5f} (it {before_reset}) -> {last:.5f}; "
+        f"largest relative difference from phase 11's losses at {common}: "
+        f"{loss_diff:.3g}; densify {tr.densify_log}; launches {launches}")
+
+    # the reloaded checkpoint, scored as the trainer's eval scores it
+    loaded = scene.Scene(cfg, load_iteration=str(cfg.iterations), device=dev)
+    bg = torch.ones(3, device=dev)
+    eval_rcfg = cfg.raster_config()._replace(
+        max_instances=tr.rcfg.max_instances)
+    views = [loaded.test_cameras()[0], loaded.info.train_cameras[0]]
+    imgs, gts = [], []
+    for cam in views:
+        out, _ = render.test_render(cam.raster_params(dev), cam.timestamp,
+                                    loaded.params, loaded.nets, loaded.alive,
+                                    tr.mcfg, loaded.fstatic, bg, width=W,
+                                    height=H, sh_degree=cfg.sh_degree,
+                                    rcfg=eval_rcfg)
+        check(out.num_dropped == 0, "trainer_disk: the check render dropped")
+        imgs.append(torch.clamp(out.color, 0, 1))
+        gts.append(torch.as_tensor(cam.load_image(True), device=dev))
+    final = {"PSNR": float(losses.psnr(imgs[0], gts[0])),
+             "SSIM": float(losses.ssim(imgs[0], gts[0])),
+             "LPIPS-alex": float(lpips.lpips(imgs[0], gts[0], "alex"))}
+
+    # LPIPS on the card against the CPU, two views at full size
+    card, cpu, lp_ms = [], [], []
+    for img, gt in zip(imgs, gts):
+        card.append(float(lpips.lpips(img, gt, "alex")))
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            lpips.lpips(img, gt, "alex")
+        sync()
+        lp_ms.append((time.perf_counter() - t0) * 1e3 / 5)
+        cpu.append(float(lpips.lpips(img.cpu(), gt.cpu(), "alex")))
+    lp_err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log(f"trainer_disk: LPIPS-alex ({lpips.weights_source('alex')}) at "
+        f"{W}x{H}: card {card}, CPU {cpu}, largest relative difference "
+        f"{lp_err:.3g}; {lp_ms} ms a view on the card")
+    check(lp_err <= 1e-4, f"trainer_disk: LPIPS card {card} vs CPU {cpu}")
+
+    res = cli.test_main(["-m", model, "--iteration", str(cfg.iterations),
+                         "--device", str(dev), "--skip_val"])
+    with open(os.path.join(model, f"{cfg.iterations}_runtimeresults.json"))             as f:
+        report = json.load(f)
+    check(isinstance(report["LPIPS-alex"], float)
+          and math.isfinite(report["LPIPS-alex"])
+          and report["LPIPS-weights"] == lpips.FIXTURE_SOURCE,
+          f"trainer_disk: the eval report's LPIPS: {report}")
+    for k, v in final.items():
+        tol = 1e-5 if k == "LPIPS-alex" else 1e-6
+        check(abs(res[k] - v) <= tol * abs(v),
+              f"trainer_disk: test_main's {k} {res[k]} against {v}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"trainer_disk: cli.test_main {json.dumps(res)}; reloaded "
+        f"checkpoint {final}; the phase took {phase_s:.1f} s; card "
+        f"{smi_line()}")
+    return {
+        "iterations": cfg.iterations, "batch": cfg.batch,
+        "resolution": [W, H], "write_s": write_s, "native": nat,
+        "scene_s": scene_s, "decode_ms_per_batch": decode, "run_s": run_s,
+        "dynamic_its_per_s": dyn, "dynamic_its_per_s_phase11": dyn11,
+        "loss_first": first, "loss_before_reset": pre, "loss_last": last,
+        "loss_max_rel_diff_phase11": loss_diff, "loss_its": common,
+        "densify": tr.densify_log, "points_final": tr.n_alive(),
+        "render_sh3": final, "test_main": {
+            k: res[k] for k in ("PSNR", "SSIM", "MS-SSIM", "LPIPS-alex",
+                                "LPIPS-weights")},
+        "lpips_card": card, "lpips_cpu": cpu, "lpips_rel_diff": lp_err,
+        "lpips_ms_per_view": lp_ms, "phase_s": phase_s}, launches
 
 
 def main():
@@ -954,10 +1288,15 @@ def main():
           "gradient parity with JAX failed")
 
     # ---- 11. the trainer --------------------------------------------------
-    trainer, trainer_counts = trainer_phase(params, nets, alive, fstatic,
-                                            mcfg, rcfg, dev, tk)
+    trainer, trainer_counts, info, losses11 = trainer_phase(
+        params, nets, alive, fstatic, mcfg, rcfg, dev, tk)
+    torch.cuda.empty_cache()
 
-    # ---- 12. summary --------------------------------------------------------
+    # ---- 12. the arena trainer from disk ------------------------------------
+    trainer_disk, disk_counts = disk_trainer_phase(
+        info, losses11, trainer["dynamic_its_per_s"], dev, tk)
+
+    # ---- 13. summary --------------------------------------------------------
     k4m = k4[cases[0][0]]
     kernels = [
         {"name": "expand_instances (K2)", "route": "cuda",
@@ -965,6 +1304,7 @@ def main():
          "replaces": "saro_gs_tpu/ops/tile_kernels.py:203",
          "launches": train_counts["expand"],
          "launches_trainer": trainer_counts["expand"],
+         "launches_trainer_disk": disk_counts["expand"],
          "launches_render": counts["expand"], "max_abs_err": k2_err,
          "check": "exact", "ms": k2_ms, "ms_by": k2_src,
          "wrapper_ms": k2_wrapper_ms,
@@ -975,6 +1315,7 @@ def main():
          "replaces": "saro_gs_tpu/ops/tile_kernels.py:409",
          "launches": train_counts["forward"],
          "launches_trainer": trainer_counts["forward"],
+         "launches_trainer_disk": disk_counts["forward"],
          "launches_render": counts["forward"], "max_abs_err": col_err,
          "check": "colour, depth, final T, n_contrib equal to the bit",
          "band": band, "batch": rcfg.chunk,
@@ -988,6 +1329,7 @@ def main():
          "replaces": "saro_gs_tpu/ops/tile_kernels.py:726",
          "launches": train_counts["backward"],
          "launches_trainer": trainer_counts["backward"],
+         "launches_trainer_disk": disk_counts["backward"],
          "max_abs_err": k3_err,
          "check": f"each row <= {K3_TOL:g} of its max and in relative L2, "
                   "unvisited slots zero, two launches bit-equal",
@@ -1001,6 +1343,7 @@ def main():
          "replaces": "saro_gs_tpu/ops/grid_scatter.py:50",
          "launches": train_counts["grid_scatter"],
          "launches_trainer": trainer_counts["grid_scatter"],
+         "launches_trainer_disk": disk_counts["grid_scatter"],
          "max_abs_err": k4_err,
          "check": "<= 1e-5 of the output's max, two launches bit-equal",
          "shape": cases[0][0],
@@ -1031,6 +1374,7 @@ def main():
                                 "grad_parity": report},
                       "k4_shapes": k4}), flush=True)
     print(json.dumps({"trainer": trainer}), flush=True)
+    print(json.dumps({"trainer_disk": trainer_disk}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,8 @@ def train_main(argv=None):
                    help="the JAX package's rasterizer choice; here it picks "
                         "the tiling that backend uses")
     p.add_argument("--device", default=DEFAULT_DEVICE)
+    p.add_argument("--quiet", action="store_true",
+                   help="accepted as the JAX CLI accepts it; changes nothing")
     p.add_argument("--start_checkpoint", default=None,
                    help="warm-start from a point_cloud.ply (+ sibling .npz) "
                         "checkpoint (reference --checkpoint, train.py:70-71)")

@@ -22,6 +22,9 @@ A whole train state travels as a plain dict of numpy arrays
   alive [C], inv_integral [C,1], inv_integral_densify [C,1]
   aux   {xyz_grad_accum [C,1], denom [C,1], max_radii2d [C]}
   fstatic   {aabb_min, aabb_max, duration}   (from_numpy only)
+
+LPIPS weights travel in the npz layout of ``train/lpips.py``
+(``lpips_params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -157,3 +160,26 @@ def train_state_to_numpy(state: TrainState) -> dict:
         "aux": {f: n(x) for f, x in zip(dens.DensifyAux._fields, state.aux)},
         "inv_integral": n(state.inv_integral),
         "inv_integral_densify": n(state.inv_integral_densify)}
+
+
+def lpips_params_from_numpy(params_np: Mapping[str, np.ndarray],
+                            net_type: str = "alex", device="cpu"
+                            ) -> dict:
+    """LPIPS weights in the npz layout (the JAX package's
+    ``save_weights_npz`` / ``init_random_weights`` dict) -> float32
+    tensors on ``device``; the names and every shape are checked against
+    ``train/lpips.param_shapes``."""
+    from .train.lpips import param_shapes
+    shapes = param_shapes(net_type)
+    if set(params_np) != set(shapes):
+        raise ValueError(f"LPIPS {net_type} weights: keys "
+                         f"{sorted(set(params_np) ^ set(shapes))} differ "
+                         "from the layout")
+    out = {}
+    for name, shape in shapes.items():
+        arr = np.asarray(params_np[name], np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"LPIPS {net_type} {name}: shape {arr.shape}, "
+                             f"expected {shape}")
+        out[name] = torch.tensor(arr, device=device)
+    return out

@@ -3,8 +3,9 @@ scripts/make_synth_scene.py).
 
 Host-side pose and intrinsics in numpy, with ``raster_params(device)``
 producing the tensors the rasterizer takes, and a lazily decoded ground
-truth image.  Matrix conventions: row-vector, GL projection with the
-(f+n)/(f-n) variant, znear=0.01, zfar=100 (scene/cameras.py:84-101).
+truth image (the native library's decoder, PIL under ``SARO_NATIVE=0``).
+Matrix conventions: row-vector, GL projection with the (f+n)/(f-n)
+variant, znear=0.01, zfar=100 (scene/cameras.py:84-101).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import DEFAULT_DEVICE, resolve_device
+from .. import DEFAULT_DEVICE, native, resolve_device
 from ..ops import math3d
 from ..ops.projection import CameraParams
 
@@ -61,24 +62,21 @@ class Camera:
                             tanfovx=t(self.tanfovx),
                             tanfovy=t(self.tanfovy))
 
-    def load_image(self, white_background: bool = False) -> np.ndarray:
-        """The ground truth at (height, width): [3, H, W] float32 in
-        [0, 1], decoded by PIL (resized with LANCZOS if needed), alpha
-        composited over the background as scene/dataset.py:57-97 does; the
-        image given to ``set_image`` if there is one."""
+    def load_image(self, white_background: bool = False,
+                   size=None) -> np.ndarray:
+        """The ground truth at ``size`` (default (width, height)):
+        [3, H, W] float32 in [0, 1], decoded by the native library (PIL
+        where it is off or refuses the file), Lanczos-resized if needed,
+        alpha composited over the background as scene/dataset.py:57-97
+        does; the image given to ``set_image`` if there is one."""
         if self._image is not None:
             return self._image
-        from PIL import Image
-        img = Image.open(self.image_path)
-        if img.size != (self.width, self.height):
-            img = img.resize((self.width, self.height), Image.LANCZOS)
-        arr = np.asarray(img).astype(np.float32) / 255.0
-        if arr.ndim == 2:
-            arr = arr[..., None].repeat(3, -1)
-        if arr.shape[-1] == 4:
-            bg = 1.0 if white_background else 0.0
-            arr = arr[..., :3] * arr[..., 3:4] + bg * (1 - arr[..., 3:4])
-        return np.transpose(arr, (2, 0, 1)).copy()
+        w, h = size if size is not None else (self.width, self.height)
+        bg = (1.0, 1.0, 1.0) if white_background else (0.0, 0.0, 0.0)
+        img = native.load_image(self.image_path, w, h, bg)
+        if img is not None:
+            return img
+        return load_image_pil(self.image_path, w, h, white_background)
 
     @property
     def has_image(self) -> bool:
@@ -87,6 +85,23 @@ class Camera:
     def set_image(self, img: np.ndarray):
         """Hold ``img`` ([3, H, W] float in [0, 1]) as the ground truth."""
         self._image = img
+
+
+def load_image_pil(path: str, width: int, height: int,
+                   white_background: bool = False) -> np.ndarray:
+    """The Python decode: PIL, resized with LANCZOS if needed, alpha
+    composited over the background -> [3, H, W] float32 in [0, 1]."""
+    from PIL import Image
+    with Image.open(path) as img:
+        if img.size != (width, height):
+            img = img.resize((width, height), Image.LANCZOS)
+        arr = np.asarray(img).astype(np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = arr[..., None].repeat(3, -1)
+    if arr.shape[-1] == 4:
+        bg = 1.0 if white_background else 0.0
+        arr = arr[..., :3] * arr[..., 3:4] + bg * (1 - arr[..., 3:4])
+    return np.transpose(arr, (2, 0, 1)).copy()
 
 
 @dataclasses.dataclass
@@ -116,6 +131,48 @@ class MiniCam:
                             campos=t(self.camera_center),
                             tanfovx=t(math.tan(self.fovx * 0.5)),
                             tanfovy=t(math.tan(self.fovy * 0.5)))
+
+
+@dataclasses.dataclass
+class Camerass(Camera):
+    """A ray-bundle camera at twice the resolution (scene/cameras.py:
+    128-214): ``width`` and ``height`` double, and ``rayo``/``rayd``
+    [1, 3, H, W] float32 hold each pixel centre's ray origin (the camera
+    centre) and unit direction (pix2ndc -> inverse projection ->
+    camera-to-world rotation -> normalise).  The ground truth keeps the
+    base size.  Off the main path, as in the reference."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.base_width, self.base_height = self.width, self.height
+        self.width = 2 * self.width
+        self.height = 2 * self.height
+        h, w = self.height, self.width
+        xs = (2.0 * np.arange(w, dtype=np.float64) + 1.0) / w - 1.0
+        ys = (2.0 * np.arange(h, dtype=np.float64) + 1.0) / h - 1.0
+        ndcx, ndcy = np.meshgrid(xs, ys)                     # [H, W]
+        ndc = np.stack([ndcx, ndcy, np.ones_like(ndcx),
+                        np.ones_like(ndcx)], axis=-1)        # [H, W, 4]
+        # row-vector matrices: the reference's ndc @ (proj^T)^-1 . T is
+        # ndc @ inv(proj)
+        proj = math3d.projection_matrix(ZNEAR, ZFAR, self.fovx, self.fovy,
+                                        self.cx_ratio, self.cy_ratio)
+        cam_pt = ndc @ np.linalg.inv(proj.astype(np.float64))
+        cam_pt = cam_pt[..., :3] / cam_pt[..., 3:4]
+        c2w = np.linalg.inv(self.world_view.astype(np.float64))
+        direction = cam_pt @ c2w[:3, :3]
+        direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+        self.rayd = np.transpose(direction, (2, 0, 1))[None].astype(
+            np.float32)
+        self.rayo = np.broadcast_to(
+            self.camera_center.reshape(1, 3, 1, 1),
+            self.rayd.shape).astype(np.float32)
+
+    def load_image(self, white_background: bool = False,
+                   size=None) -> np.ndarray:
+        if size is None:
+            size = (self.base_width, self.base_height)
+        return super().load_image(white_background, size=size)
 
 
 def resolution_policy(orig_w: int, orig_h: int, resolution: int,

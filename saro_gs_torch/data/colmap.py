@@ -1,9 +1,10 @@
 """COLMAP sparse-reconstruction readers and writers, binary and text
-(counterpart of data/colmap.py, its pure-Python path).
+(counterpart of data/colmap.py).
 
 The standard COLMAP model format, as far as the pipeline needs it:
 cameras.bin/images.bin/points3D.bin and their text variants (reference:
-scene/colmap_loader.py).
+scene/colmap_loader.py).  The binary readers parse through the native
+library (``native.py``) and in Python under ``SARO_NATIVE=0``.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import collections
 import struct
 
 import numpy as np
+
+from .. import native
 
 CameraModel = collections.namedtuple("CameraModel", ["id", "name",
                                                      "num_params"])
@@ -68,6 +71,10 @@ def _read(f, n, fmt):
 
 
 def read_cameras_binary(path):
+    native_out = native.read_cameras_bin(path)
+    if native_out is not None:
+        return {cid: ColmapCamera(cid, MODEL_BY_ID[mid].name, w, h, params)
+                for cid, mid, w, h, params in native_out}
     cams = {}
     with open(path, "rb") as f:
         num = _read(f, 8, "Q")[0]
@@ -81,6 +88,11 @@ def read_cameras_binary(path):
 
 
 def read_images_binary(path, load_points=False):
+    if not load_points:
+        native_out = native.read_images_bin(path)
+        if native_out is not None:
+            return {iid: ColmapImage(iid, q, t, cid, name, None, None)
+                    for iid, q, t, cid, name in native_out}
     images = {}
     with open(path, "rb") as f:
         num = _read(f, 8, "Q")[0]
@@ -110,6 +122,9 @@ def read_images_binary(path, load_points=False):
 
 def read_points3d_binary(path):
     """Returns (xyz [N,3], rgb [N,3] uint8, error [N])."""
+    native_out = native.read_points3d_bin(path)
+    if native_out is not None:
+        return native_out
     with open(path, "rb") as f:
         num = _read(f, 8, "Q")[0]
         xyz = np.empty((num, 3))

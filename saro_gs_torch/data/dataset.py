@@ -6,8 +6,9 @@ Replaces the reference's torch DataLoader over ``CameraDataset``
 host: the stacked camera matrices, the ground truth as uint8 (a quarter
 of float32's bytes; the train step decodes it on the device) and the
 timestamps.  The shuffle is ``np.random.RandomState(seed)``, as in the
-JAX package, so both see the same batches in the same order.  Threads
-suffice: PIL decodes release the interpreter lock.
+JAX package, so both see the same batches in the same order.  A batch is
+decoded by one call of the native library, on its own threads without the
+interpreter lock (per camera where it cannot take the batch whole).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Iterator, List, NamedTuple
 
 import numpy as np
 
+from .. import native
 from ..ops.projection import CameraParams
 from .cameras import Camera
 
@@ -60,7 +62,7 @@ class BatchLoader:
 
     def _load_batch(self, idxs) -> CameraBatch:
         cams = [self.cameras[i] for i in idxs]
-        gt = np.stack([c.load_image(self.white_background) for c in cams])
+        gt = np.stack(self._decode(cams))
         if gt.dtype != np.uint8:
             gt = np.clip(gt * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
         return CameraBatch(
@@ -68,6 +70,19 @@ class BatchLoader:
             timestamps=np.asarray([c.timestamp for c in cams],
                                   np.float32).reshape(-1, 1, 1),
             indices=np.asarray(idxs))
+
+    def _decode(self, cams: List[Camera]) -> List[np.ndarray]:
+        """One native call for the batch when every view is undecoded and
+        of one size, else each camera's ``load_image``."""
+        if (all(c._image is None and c.image_path for c in cams)
+                and len({(c.width, c.height) for c in cams}) == 1
+                and native.available()):
+            bg = (1.0,) * 3 if self.white_background else (0.0,) * 3
+            out = native.load_images([c.image_path for c in cams],
+                                     cams[0].width, cams[0].height, bg)
+            if out is not None:
+                return list(out)
+        return [c.load_image(self.white_background) for c in cams]
 
     def epoch(self) -> Iterator[CameraBatch]:
         order = np.arange(len(self.cameras))

@@ -1,5 +1,5 @@
-"""Scene readers: Neural3D (per-frame COLMAP dirs) and Blender/D-NeRF
-(counterpart of data/readers.py; the HyperNeRF reader is not ported yet).
+"""Scene readers: Neural3D (per-frame COLMAP dirs), Blender/D-NeRF and
+HyperNeRF (``data/hypernerf.py``) (counterpart of data/readers.py).
 
 The behaviour of scene/dataset_readers.py:
   * Colmap/Neural3D: a ``colmap_<start>`` directory per first frame; one
@@ -215,7 +215,13 @@ def read_blender_scene(path: str, duration: int = 150, resolution: int = 2,
                      nerf_translate=translate, ply_path=ply_path)
 
 
+def _read_hypernerf(*args, **kwargs):
+    from .hypernerf import read_hypernerf_scene
+    return read_hypernerf_scene(*args, **kwargs)
+
+
 SCENE_READERS = {
     "colmap": read_colmap_scene,
     "blender": read_blender_scene,
+    "hypernerf": _read_hypernerf,
 }

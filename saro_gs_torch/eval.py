@@ -1,12 +1,14 @@
 """Evaluation: metrics, the FPS protocol, render dumps (counterpart of
 eval.py; the reference's test.py:61-181).
 
-Per-view PSNR, SSIM and MS-SSIM by ``train/losses.py``; renders, ground
-truth and viridis depth (and the lifespan segmentation) as PNGs, written
-by PIL; the FPS protocol of the reference: 4 passes over the views, the
-first 10 frames of each discarded, each frame timed to a
-``torch.cuda.synchronize``.  LPIPS is left out, as the JAX package leaves
-it out when no weights exist (its ``LPIPS-alex`` is then None).
+Per-view PSNR, SSIM and MS-SSIM by ``train/losses.py`` and LPIPS (alex)
+by ``train/lpips.py``, whose weights resolve as the JAX package's do (a
+local npz, else the seed-0 fixture: ``LPIPS-weights`` names which; with
+``SARO_LPIPS_FIXTURE=0`` and no npz both LPIPS entries are None); renders,
+ground truth and viridis depth (and the lifespan segmentation) as PNGs,
+written by PIL; the FPS protocol of the reference: 4 passes over the
+views, the first 10 frames of each discarded, each frame timed to a
+``torch.cuda.synchronize``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from .data.cameras import Camera
 from .models import gaussians as gm
 from .render import test_render
-from .train import losses
+from .train import losses, lpips
 
 
 def save_png(path: str, img: np.ndarray):
@@ -104,7 +106,8 @@ class Evaluator:
         self.rcfg = self.rcfg._replace(
             max_instances=1 << max(int(need * 1.3) - 1, 1).bit_length())
 
-        psnrs, ssims, msssims = [], [], []
+        use_lpips = lpips.lpips_available("alex")
+        psnrs, ssims, msssims, lpipss = [], [], [], []
         for idx, cam in enumerate(cameras):
             out, seg = self.render(cam, points, nets, alive, feat, sh_degree,
                                    require_segment)
@@ -116,6 +119,8 @@ class Evaluator:
                 psnrs.append(float(losses.psnr(img_t, gt_t)))
                 ssims.append(float(losses.ssim(img_t, gt_t)))
                 msssims.append(float(losses.msssim(img_t, gt_t)))
+                if use_lpips:
+                    lpipss.append(float(lpips.lpips(img_t, gt_t, "alex")))
                 if idx % save_every == 0:
                     save_png(os.path.join(out_root, "gt", f"{idx:05d}.png"),
                              gt)
@@ -153,8 +158,10 @@ class Evaluator:
             "PSNR": float(np.mean(psnrs)) if psnrs else None,
             "SSIM": float(np.mean(ssims)) if ssims else None,
             "MS-SSIM": float(np.mean(msssims)) if msssims else None,
-            "LPIPS-alex": None,
-            "LPIPS-weights": None,
+            "LPIPS-alex": float(np.mean(lpipss)) if lpipss else None,
+            # "fixture-random-seed0" values are a relative random-feature
+            # distance, not comparable to published LPIPS
+            "LPIPS-weights": lpips.weights_source("alex"),
             "FPS": fps,
             "num_views": len(cameras),
         }

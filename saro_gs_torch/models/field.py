@@ -11,7 +11,7 @@ and plane (a, b) is stored [C, res[b], res[a]].
 from __future__ import annotations
 
 import itertools
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -139,3 +139,42 @@ def time_smoothness(planes) -> torch.Tensor:
             second = first[:, 1:, :] - first[:, :h - 2, :]
             total = total + torch.square(second).mean()
     return total
+
+
+def convert_coarse_to_fine(cfg: FieldConfig, static: FieldStatic,
+                           old_planes, old_static: FieldStatic
+                           ) -> List[torch.Tensor]:
+    """Planes for a field of ``cfg`` over ``static``'s aabb, warm-started
+    from a coarser field's planes (``HexPlaneField.planes`` order)
+    (``ScaleAwareResField.convert_coarse_to_fine``, hexplane.py:279-309):
+    each new plane's sample coordinates are mapped through the old aabb
+    into the old field's [0, 1] frame and the old plane is sampled there,
+    nearest with aligned corners.  The time axis spans the old range
+    whole.  Returns the new planes in the same order."""
+    k = len(COMBS)
+    new_planes = []
+    for mi, m in enumerate(cfg.multires):
+        reso = cfg.reso(m)
+        for ci, (a, b) in enumerate(COMBS):
+            old = old_planes[mi * k + ci]            # [C, Ho, Wo]
+
+            def axis_coords(axis, n):
+                # the new aabb's ends in the old aabb's [0, 1] frame
+                if axis == 3:
+                    lo, hi = 0.0, 1.0
+                else:
+                    olo = old_static.aabb_min[axis]
+                    ohi = old_static.aabb_max[axis]
+                    lo = (static.aabb_min[axis] - olo) / (ohi - olo)
+                    hi = (static.aabb_max[axis] - olo) / (ohi - olo)
+                return lo + (hi - lo) * torch.linspace(
+                    0.0, 1.0, n, device=old.device)
+
+            ho, wo = old.shape[1], old.shape[2]
+            # nearest, aligned corners: u in [0, 1] -> round(u (n - 1))
+            ix = torch.clamp(torch.round(axis_coords(a, reso[a]) * (wo - 1)),
+                             0, wo - 1).long()
+            iy = torch.clamp(torch.round(axis_coords(b, reso[b]) * (ho - 1)),
+                             0, ho - 1).long()
+            new_planes.append(old.detach()[:, iy][:, :, ix].clone())
+    return new_planes

@@ -9,7 +9,9 @@ Conventions, as in the JAX package and the reference CUDA rasterizer:
 
 Camera matrices are built on the host in numpy; the per-point math works
 on 1-D [N] tensor columns with the JAX package's evaluation order, so the
-two packages round alike.
+two packages round alike.  The row forms on [..., k] tensors
+(``transform_point_4x3`` ... ``unpack_sym3``) are the JAX package's public
+helpers, off the render path.
 """
 from __future__ import annotations
 
@@ -187,6 +189,38 @@ def ndc2pix(v, size):
 # ---------------------------------------------------------------------------
 # stacked forms
 # ---------------------------------------------------------------------------
+
+def transform_point_4x3(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """[..., 3] through a row-vector 4x4 -> [..., 3], no homogeneous
+    divide."""
+    return p @ m[:3, :3] + m[3, :3]
+
+
+def transform_point_4x4(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> homogeneous [..., 4] through a row-vector 4x4."""
+    return p @ m[:3, :4] + m[3, :4]
+
+
+def project_points(p: torch.Tensor, projmat: torch.Tensor) -> torch.Tensor:
+    """World points [..., 3] -> NDC [..., 3] with the reference's w-epsilon
+    (forward.cu:198-200)."""
+    hom = transform_point_4x4(p, projmat)
+    return hom[..., :3] * (1.0 / (hom[..., 3:4] + W_EPS))
+
+
+def quat_to_rotmat_raw(q: torch.Tensor) -> torch.Tensor:
+    """Un-normalised (r, x, y, z) quaternions [..., 4] -> rotation matrices
+    [..., 3, 3] (forward.cu:127), ``v_rot = R @ v``."""
+    entries = quat_to_rotmat_cols(q[..., 0], q[..., 1], q[..., 2], q[..., 3])
+    return torch.stack(entries, dim=-1).reshape(*q.shape[:-1], 3, 3)
+
+
+def unpack_sym3(c6: torch.Tensor) -> torch.Tensor:
+    """Packed [..., 6] -> symmetric [..., 3, 3]."""
+    xx, xy, xz, yy, yz, zz = c6.unbind(-1)
+    return torch.stack([xx, xy, xz, xy, yy, yz, xz, yz, zz],
+                       dim=-1).reshape(*c6.shape[:-1], 3, 3)
+
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """L2-normalize quaternions as q / sqrt(|q|^2 + eps^2) (finite at 0)."""

@@ -40,6 +40,13 @@ class PreprocessOut(NamedTuple):
     mask: torch.Tensor        # [N] bool: survives culling
 
 
+def mark_visible(means3d: torch.Tensor, cam: CameraParams) -> torch.Tensor:
+    """Whether each point is in front of the near cull, view-space
+    z > 0.2 (``markVisible``, rasterize_points.cu:196-215)."""
+    p_view = math3d.transform_point_4x3(means3d, cam.viewmat)
+    return p_view[..., 2] > math3d.NEAR_CULL_Z
+
+
 def get_rect_cols(p_x, p_y, radius, grid_x: int, grid_y: int,
                   tile_x: int, tile_y: int, radius_y=None):
     """Tile rectangle (min_x, min_y, max_x, max_y) int32 columns covered by

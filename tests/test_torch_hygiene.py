@@ -52,6 +52,55 @@ def test_sources_name_no_jax():
             assert not pat.search(fh.read()), f
 
 
+def test_ported_surface_is_covered():
+    """Every module of the JAX package outside parallel/ has its namesake
+    here, so the two checks above reach the whole port: utils/, prep.py
+    and native.py too."""
+    jax_pkg = os.path.join(ROOT, "saro_gs_tpu")
+    theirs = set()
+    for dirpath, _, files in os.walk(jax_pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), jax_pkg)
+                theirs.add(rel[:-3].replace(os.sep, "."))
+    theirs = {m[:-len(".__init__")] if m.endswith(".__init__") else m
+              for m in theirs if not m.startswith("parallel")}
+    mine = {m[len("saro_gs_torch."):] for m in _modules()
+            if m != "saro_gs_torch"}
+    theirs.discard("__init__")
+    assert theirs <= mine, sorted(theirs - mine)
+    assert {"native", "prep", "utils", "utils.visual", "train.lpips",
+            "data.hypernerf", "data.preprocess"} <= mine
+
+
+def test_native_build_writes_only_under_build(tmp_path, monkeypatch):
+    """The port's native library compiles from native/src into
+    build/saro_gs_torch/native and leaves native/ as it found it."""
+    from saro_gs_torch import native
+
+    def snapshot():
+        # native/build is the JAX package's own make output, which its
+        # binding may write from another test process meanwhile
+        out = {}
+        for dirpath, dirs, files in os.walk(os.path.join(ROOT, "native")):
+            if dirpath == os.path.join(ROOT, "native"):
+                dirs[:] = [d for d in dirs if d != "build"]
+            for f in files:
+                path = os.path.join(dirpath, f)
+                out[path] = os.stat(path).st_mtime_ns
+        return out
+    assert native.SO_PATH == os.path.join(
+        ROOT, "build", "saro_gs_torch", "native", "libsaro_native.so")
+    assert native.SRC_DIR == os.path.join(ROOT, "native", "src")
+    before = snapshot()
+    out_dir = tmp_path / "build"
+    monkeypatch.setattr(native, "BUILD_DIR", str(out_dir))
+    monkeypatch.setattr(native, "SO_PATH", str(out_dir / "lib.so"))
+    assert native.build() > 0
+    assert os.listdir(out_dir) == ["lib.so"]
+    assert snapshot() == before
+
+
 def test_tf32_disabled():
     import saro_gs_torch  # noqa: F401
     assert torch.backends.cuda.matmul.allow_tf32 is False

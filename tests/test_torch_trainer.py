@@ -26,6 +26,7 @@ from saro_gs_torch import render as trender
 from saro_gs_torch import scene as tscene
 from saro_gs_torch.data import readers as treaders
 from saro_gs_torch.models import gaussians as tgm
+from saro_gs_torch.train import lpips as tlpips
 from saro_gs_torch.train.trainer import Trainer as TTrainer
 from saro_gs_tpu import config as jconfig
 from saro_gs_tpu import render as jrender
@@ -223,41 +224,91 @@ def test_checkpoints_cross_packages(toy):
     np.testing.assert_allclose(mine, theirs, atol=1e-4, rtol=0)
 
 
-def test_cli_train_and_test_on_cpu(toy, tmp_path):
-    """(d) ``python -m saro_gs_torch.cli train/test --device cpu`` at 8
-    iterations writes the JAX CLI's files; a profiler window writes its
-    trace."""
-    cfg_path = tmp_path / "toy.json"
-    prof_dir = tmp_path / "prof"
+@pytest.fixture(scope="module")
+def cli_run(toy, tmp_path_factory):
+    """``cli train`` (with ``--quiet``, as the JAX CLI takes it) and ``cli
+    test`` at 8 iterations on the CPU, with a profiler window."""
+    tmp = tmp_path_factory.mktemp("cli")
+    cfg_path = tmp / "toy.json"
+    prof_dir = tmp / "prof"
     cfg = dict(CFG, iterations=8, test_iteration=8, profile_dir=str(prof_dir),
                profile_iters=[2, 3])
     cfg_path.write_text(json.dumps(cfg))
-    out = tmp_path / "model"
+    out = tmp / "model"
     treaders.SCENE_READERS[LOADER] = _small_reader(
         treaders.read_blender_scene, tgm.PointCloud)
     try:
         tr = tcli.train_main(["-s", toy["root"], "--config", str(cfg_path),
-                              "-m", str(out), "--device", "cpu"])
-        assert tr.state.step == 8 and len(tr.history) == 1
-        for f in ("cfg_args.json", "cameras.json", "history.json",
-                  "exp_log.txt", "8_runtimeresults.json",
-                  "point_cloud/iteration_8/point_cloud.ply",
-                  "point_cloud/iteration_8/point_cloud.npz",
-                  "point_cloud/iteration_best/point_cloud.ply"):
-            assert (out / f).exists(), f
-        assert (prof_dir / "trace_2_3.json").exists()
+                              "-m", str(out), "--device", "cpu", "--quiet"])
         with open(out / "8_runtimeresults.json") as f:
-            assert np.isfinite(json.load(f)["PSNR"])
-        # the JAX package reads the port's cfg_args.json
-        assert jconfig.load_cfg_args(str(out / "cfg_args.json")).iterations \
-            == 8
+            train_report = json.load(f)
         res = tcli.test_main(["-m", str(out), "--iteration", "8",
                               "--device", "cpu"])
     finally:
         treaders.SCENE_READERS.pop(LOADER, None)
+    return dict(out=out, prof_dir=prof_dir, tr=tr, res=res,
+                train_report=train_report)
+
+
+def test_cli_train_and_test_on_cpu(cli_run):
+    """(d) ``python -m saro_gs_torch.cli train/test --device cpu`` at 8
+    iterations writes the JAX CLI's files, with LPIPS (the seed-0 fixture)
+    in the test report; a profiler window writes its trace."""
+    out, tr, res = cli_run["out"], cli_run["tr"], cli_run["res"]
+    assert tr.state.step == 8 and len(tr.history) == 1
+    for f in ("cfg_args.json", "cameras.json", "history.json",
+              "exp_log.txt", "8_runtimeresults.json",
+              "point_cloud/iteration_8/point_cloud.ply",
+              "point_cloud/iteration_8/point_cloud.npz",
+              "point_cloud/iteration_best/point_cloud.ply"):
+        assert (out / f).exists(), f
+    assert (cli_run["prof_dir"] / "trace_2_3.json").exists()
+    assert np.isfinite(cli_run["train_report"]["PSNR"])
+    # the JAX package reads the port's cfg_args.json
+    assert jconfig.load_cfg_args(str(out / "cfg_args.json")).iterations \
+        == 8
     assert np.isfinite(res["PSNR"]) and res["num_views"] == 2
+    assert isinstance(res["LPIPS-alex"], float)
+    assert np.isfinite(res["LPIPS-alex"]) and res["LPIPS-alex"] > 0
+    assert res["LPIPS-weights"] == "fixture-random-seed0"
+    with open(out / "8_runtimeresults.json") as f:
+        assert json.load(f) == res
     for sub in ("renders", "gt", "depth"):
         assert sorted(os.listdir(out / "test" / "ours_8" / sub)) == [
             "00000.png", "00001.png"], sub
     for f in ("8_runtimeresults.json", "8_runtimeperview.json"):
         assert (out / f).exists(), f
+
+
+def test_eval_report_lpips_matches_jax(toy, cli_run):
+    """The report's LPIPS-alex equals, within 1e-5 relative, the JAX
+    package's lpips (its seed-0 fixture) on the same renders and ground
+    truth: the checkpoint the CLI tested, rendered as ``render_set`` does."""
+    from saro_gs_tpu.train import lpips as jlpips
+    out = cli_run["out"]
+    cfg = tconfig.load_cfg_args(str(out / "cfg_args.json"))
+    cfg.model_path = str(out)
+    treaders.SCENE_READERS[LOADER] = _small_reader(
+        treaders.read_blender_scene, tgm.PointCloud)
+    try:
+        sc = tscene.Scene(cfg, load_iteration="8", device="cpu")
+    finally:
+        treaders.SCENE_READERS.pop(LOADER, None)
+    ev = teval.Evaluator(cfg, sc)
+    with torch.no_grad():
+        feat = tgm.field_feat(sc.params, sc.nets, ev.mcfg, sc.fstatic)
+    jp = {k: jnp.asarray(v) for k, v in jlpips.init_random_weights(
+        jax.random.PRNGKey(0), "alex").items()}
+    mine, theirs = [], []
+    for cam in sc.test_cameras():
+        o, _ = ev.render(cam, sc.params, sc.nets, sc.alive, feat,
+                         ev.mcfg.sh_degree)
+        assert o.num_dropped == 0
+        img = torch.clamp(o.color, 0, 1)
+        gt = cam.load_image(cfg.white_background)
+        mine.append(float(tlpips.lpips(img, torch.as_tensor(gt))))
+        theirs.append(float(jlpips.lpips_from_params(
+            jp, jnp.asarray(n(img)), jnp.asarray(gt), "alex")))
+    np.testing.assert_allclose(mine, theirs, rtol=1e-5)
+    assert cli_run["res"]["LPIPS-alex"] == pytest.approx(np.mean(theirs),
+                                                         rel=1e-5)
