@@ -86,9 +86,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      dynamic stage beside phase 11's, the largest relative difference
      from phase 11's logged losses (the PNGs quantise the ground truth),
      LPIPS ms a view;
- 13. one JSON line of results, one of each trainer phase, one of the
-     kernels, then the card line, then the result line
-     {"ok": true, "device": {...}}.
+ 13. the parallel path, as ranks sharing the one card under gloo
+     (saro_gs_torch/parallel/): (a) K2, K1 and K3 on the arena frame's
+     strip of 16 tile rows from row 16 (ts 0.5, the partial bottom row
+     included) against their plain versions, K2 and K1 to the bit, K3
+     within its 1e-5 gates; (b) 2 and 4 strips by rasterize equal to the
+     full frame to the bit, their gradients summed within 1e-5 of each
+     group's largest entry of the frame's; (c) phase 9's step on the
+     2x1 and 1x2 meshes (2 ranks) and the 2x2 mesh (4 ranks), 4 steps
+     each: every rank's state equal to the bit, losses within 1e-5 of the
+     single process's, step 1's reduced gradient (Adam's first moment)
+     within 1e-5 of its largest entry and the parameters within 2e-5
+     where it is significant, step 4's parameters within twice the single
+     process's own spread under another order of its views; steps/s and
+     launches by mesh; (d) tile_sharded_render of the arena frame over 2
+     ranks equal to the single render to the bit; (e) phase 11's trainer
+     on 2 data ranks through cli.train_main --quiet: the loss at
+     iteration 1 within 1e-5 and at 50 and 100 within 1e-3 of phase 11's,
+     no bad step, nothing dropped, the ranks' states equal to the bit,
+     the checkpoint written by rank 0 alone, its render at PSNR >= 50 dB
+     against phase 11's, it/s beside phase 11's.  A failed rank fails the
+     phase;
+ 14. one JSON line of results, one of each trainer phase, one of the
+     parallel path, one of the kernels, then the card line, then the
+     result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Times are the card's own: read them beside the
 card's name and power limit printed with them.
@@ -150,6 +171,14 @@ LOADER = "chip_smoke_arena"
 SCHEDULE = dict(iterations=150, static_iteration=50, densify_from_iter=60,
                 densification_interval=40, densify_until_iter=140,
                 opacity_reset_interval=120, test_iteration=150, capacity=1)
+# phase 13: steps a mesh runs, the gated point fields, its config and
+# model (git-ignored), and a rank group's time limit
+PARALLEL_STEPS = 4
+PARALLEL_FIELDS = ("xyz", "scaling", "opacity", "temporal_pos")
+# the single-process reference's second order of the views
+ALT_ORDER = [0, 2, 1, 3]
+MESH_DIR = os.path.join(HERE, "build", "chip_smoke_mesh")
+PARALLEL_TIMEOUT_S = 420.0
 
 
 def log(msg):
@@ -187,6 +216,75 @@ def call_ms(fn, timing):
     if total > 0:
         return total, wrapper, "profiler", by_kernel
     return wrapper, wrapper, "events", by_kernel
+
+
+def load_arena(dev):
+    """The arena checkpoint: (cfg, mcfg, params, nets, alive, fstatic,
+    number of points) on ``dev``."""
+    from saro_gs_torch import config as cfg_mod
+    from saro_gs_torch import scene
+    cfg = cfg_mod.load_cfg_args(os.path.join(ARENA, "cfg_args.json"))
+    mcfg = cfg.model_config()
+    return (cfg, mcfg) + tuple(scene.load_gaussian_checkpoint(
+        PLY, mcfg, device=dev))
+
+
+def train_inputs(cfg, mcfg, params, nets, alive, fstatic, dev,
+                 train_cap=None):
+    """Phase 9's step on the arena checkpoint, dynamic stage, batch 4 at
+    1352x1014: four ring cameras, seeded uint8 noise as ground truth, the
+    checkpoint's loss weights and learning rates, the integral prune and
+    LR scaling.  ``train_cap`` None sizes the instance capacity from the
+    four views (their most instances plus 15%, a multiple of 64k).
+    Returns cams, gt, ts, st, state0, need (SimpleNamespace)."""
+    import types
+
+    import torch
+    from saro_gs_torch import render
+    from saro_gs_torch.data import cameras
+    from saro_gs_torch.models import densify as dens
+    from saro_gs_torch.models import gaussians as gm
+    from saro_gs_torch.ops import projection
+    from saro_gs_torch.train import step as step_mod
+    from tests import torch_parity as golden
+    with torch.no_grad():
+        integral = gm.temporal_integral(params, nets, mcfg, fstatic)
+    alive_t, inv_integral = dens.integral_prune_and_lr(
+        alive, integral, cfg.min_intergral, cfg.inv_lr_clip)
+    ring = cameras.ring_cameras(BATCH)
+    centres = np.stack([c2w[:3, 3] for c2w in ring])
+    # the scene extent as the trainer takes it from its cameras: 1.1 times
+    # the largest distance of a camera from the cameras' centre
+    extent = 1.1 * float(np.linalg.norm(centres - centres.mean(0),
+                                        axis=1).max())
+    tcams = [cameras.camera_from_c2w(c2w, 0.85, W, H, 0.0).raster_params(dev)
+             for c2w in ring]
+    cams = projection.CameraParams(*[torch.stack(x) for x in zip(*tcams)])
+    gt = torch.as_tensor(golden.noise_gt(BATCH, H, W), device=dev)
+    ts = torch.linspace(0.1, 0.9, BATCH, device=dev).reshape(-1, 1, 1)
+    rcfg = cfg.raster_config()
+    need = None
+    if train_cap is None:
+        need = 0
+        bg = torch.ones(3, device=dev)
+        with torch.no_grad():
+            feat = gm.field_feat(params, nets, mcfg, fstatic)
+            for i in range(BATCH):
+                pkg = render.train_render(
+                    tcams[i], ts[i], params, nets, alive_t, mcfg, fstatic,
+                    bg, width=W, height=H, stage="dynamatic", sh_degree=3,
+                    rcfg=rcfg._replace(max_instances=1 << 22), feat=feat)
+                need = max(need, pkg.out.num_instances + pkg.out.num_dropped)
+        train_cap = max(-(-int(need * 1.15) // 65536) * 65536, 65536)
+    st = step_mod.StepStatics(
+        mcfg=mcfg, rcfg=rcfg._replace(max_instances=train_cap),
+        weights=cfg.loss_weights(), width=W, height=H,
+        cfg_lrs=step_mod.make_lr_statics(cfg), extent=extent,
+        scale_floor=cfg.scale_floor)
+    state0 = step_mod.init_state(params, nets, alive_t)._replace(
+        inv_integral=inv_integral)
+    return types.SimpleNamespace(cams=cams, gt=gt, ts=ts, st=st,
+                                 state0=state0, need=need)
 
 
 def arena_scene_info(params, nets, alive, fstatic, mcfg, rcfg, dev):
@@ -234,7 +332,8 @@ def arena_scene_info(params, nets, alive, fstatic, mcfg, rcfg, dev):
 def trainer_phase(params, nets, alive, fstatic, mcfg, rcfg, dev, tk):
     """Phase 11: train the arena configuration from a point cloud through
     cli.train_main; returns (the "trainer" results, the kernels' launches
-    over the run)."""
+    over the run, the scene, what phase 13 compares with: the logged
+    losses, the config, the test camera and its render at the end)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from saro_gs_torch import cli, render, scene
@@ -435,7 +534,9 @@ def trainer_phase(params, nets, alive, fstatic, mcfg, rcfg, dev, tk):
         "card_busy_ms_per_it": busy_ms or None,
         "traced_ms_per_it": traced_ms,
         "launches_8_its": launches8}, launches, info, {
-            i: h["loss"] for i, h in hist.items()}
+            "losses": {i: h["loss"] for i, h in hist.items()}, "cfg": cfg,
+            "test_camera": cam, "eval_rcfg": eval_rcfg,
+            "render": outs[0].color, "dyn": dyn}
 
 
 def header_found(name):
@@ -749,15 +850,530 @@ def disk_trainer_phase(info, losses11, dyn11, dev, tk):
         "lpips_ms_per_view": lp_ms, "phase_s": phase_s}, launches
 
 
+def state_checksum(state):
+    """sha256 of every leaf of a TrainState: points, nets, Adam moments,
+    densify statistics, alive and the LR scalings."""
+    import hashlib
+    from saro_gs_torch.train import step as step_mod
+    h = hashlib.sha256()
+    for x in (step_mod.param_leaves(state.points, state.nets) + state.opt.mu
+              + state.opt.nu + list(state.aux)
+              + [state.alive, state.inv_integral,
+                 state.inv_integral_densify]):
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gate_leaves(state):
+    """What phase 13 holds to the single process, as numpy: the point
+    fields PARALLEL_FIELDS and the first plane, their Adam first moments
+    (``mu.<name>``), and xyz_grad_accum."""
+    from saro_gs_torch.models import gaussians as gm
+
+    def n(x):
+        return x.detach().cpu().numpy()
+    fields = gm.GaussianParams._fields
+    out = {k: n(getattr(state.points, k)) for k in PARALLEL_FIELDS}
+    out["plane0"] = n(state.nets.field.planes[0])
+    for k in PARALLEL_FIELDS:
+        out[f"mu.{k}"] = n(state.opt.mu[fields.index(k)])
+    out["mu.plane0"] = n(state.opt.mu[len(fields)])
+    out["xyz_grad_accum"] = n(state.aux.xyz_grad_accum)
+    return out
+
+
+def state_errors(ref_first, ref, alt, got_first, got):
+    """Phase 13's comparison of a mesh's state with the single process's,
+    by gated leaf.  After step 1: ``mu_step1``, Adam's first moment (0.1
+    times the step's reduced gradient) off by this share of its largest
+    entry, and ``step1``, the largest difference of the parameter where
+    that gradient is significant (|mu| >= 1e-3 of the largest).  After
+    the last step: ``last``, the largest difference, beside ``spread``,
+    the single process's own largest difference between two orders of
+    its views (``alt``).  Adam's first steps move a parameter by about
+    lr * sign(gradient), so a gradient at the rounding of the summation
+    order moves it either way, and later steps carry that on."""
+    out = {}
+    for k in PARALLEL_FIELDS + ("plane0",):
+        mu = np.abs(ref_first[f"mu.{k}"])
+        sig = mu >= 1e-3 * mu.max()
+        out[k] = {
+            "mu_step1": float(np.abs(got_first[f"mu.{k}"]
+                                     - ref_first[f"mu.{k}"]).max()
+                              / max(mu.max(), 1e-30)),
+            "step1": float(np.abs(got_first[k] - ref_first[k])[sig]
+                           .max(initial=0.0)),
+            "last": float(np.abs(got[k] - ref[k]).max()),
+            "spread": float(np.abs(alt[k] - ref[k]).max())}
+    return out
+
+
+def eval_camera(dev):
+    """Ring camera 0 of 21 at 1352x1014, the render slice's camera."""
+    from saro_gs_torch.data import cameras
+    return cameras.camera_from_c2w(cameras.ring_cameras(21)[0], 0.85, W, H,
+                                   0.0).raster_params(dev)
+
+
+def collective_ms(fn, reps=3):
+    """ms a call of ``fn`` (collectives) on every rank, after a warm-up,
+    the ranks starting together."""
+    import torch
+    import torch.distributed as dist
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def parallel_rank(rank, meshes, train_cap, render_cap, trainer):
+    """One rank of phase 13 on the card.  On each (n_data, n_tile) mesh:
+    PARALLEL_STEPS of phase 9's step from the checkpoint on this rank's
+    views (its data index's share of the batch, its strips of every
+    view).  With ``trainer`` (config path, model dir) also the arena frame
+    by tile_sharded_render over the 2 ranks and phase 11's trainer on
+    2 data ranks through cli.train_main.  Returns what the main process
+    checks; the arrays only from rank 0."""
+    import torch
+    import torch.distributed as dist
+    from saro_gs_torch import cli
+    from saro_gs_torch.data import readers
+    from saro_gs_torch.models import gaussians as gm
+    from saro_gs_torch.ops import tile_kernels as tk
+    from saro_gs_torch.ops.projection import CameraParams
+    from saro_gs_torch.parallel import comm, runtime, shard
+    from saro_gs_torch.train import step as step_mod
+    dev = runtime.rank_device("cuda")
+    tk.build()
+    cfg, mcfg, params, nets, alive, fstatic, _ = load_arena(dev)
+    tin = train_inputs(cfg, mcfg, params, nets, alive, fstatic, dev,
+                       train_cap)
+    bg = torch.ones(3, device=dev)
+    out = {}
+    for shape in meshes:
+        mesh = shard.make_mesh(*shape)
+        idx = runtime.host_shard(list(range(BATCH)), mesh.data_rank,
+                                 mesh.n_data)
+        cams = CameraParams(*[x[idx] for x in tin.cams])
+        state = step_mod.clone_state(tin.state0)
+        tk.reset_launches()
+        metrics, secs = [], []
+        for k in range(PARALLEL_STEPS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, m = shard.dp_train_step(
+                state, cams, tin.gt[idx], tin.ts[idx], bg, fstatic, tin.st,
+                stage="dynamatic", sh_degree=3, scale_integral=True,
+                mesh=mesh)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            metrics.append(m)
+            if k == 0 and rank == 0:
+                first = gate_leaves(state)
+        res = {"metrics": metrics, "step_s": secs,
+               "launches": dict(tk.launches),
+               "checksum": state_checksum(state)}
+        if rank == 0:
+            res["leaves"] = (first, gate_leaves(state))
+        # what the collectives cost alone: a reduction of buffers the size
+        # of the gradients over each axis, and a view's strip gather
+        grads = [torch.zeros_like(x) for x in
+                 step_mod.param_leaves(state.points, state.nets)]
+        ty = tin.st.rcfg.tile_y
+        rows = -(-(-(-H // ty)) // mesh.n_tile)      # ceil(ceil(H/ty)/n)
+        strip = torch.zeros(3, rows * ty, W, device=dev)
+        res["collective_ms"] = {
+            "gradient_floats": sum(g.numel() for g in grads),
+            **{f"all_reduce_{axis}": collective_ms(
+                lambda g=group: comm.all_reduce(grads, "sum", g))
+               for axis, group in (("data", mesh.data_group),
+                                   ("tile", mesh.tile_group))
+               if group is not None}}
+        if mesh.tile_group is not None:
+            res["collective_ms"]["gather_strip"] = collective_ms(
+                lambda: comm.gather_rows(strip, mesh.tile_group,
+                                         mesh.tile_rank, mesh.n_tile, dim=1))
+        out[f"{shape[0]}x{shape[1]}"] = res
+        del state, grads
+    if trainer is None:
+        return out
+    rcfg = cfg.raster_config()._replace(need_aux=False,
+                                        max_instances=render_cap)
+    with torch.no_grad():
+        d = gm.deform(params, nets, mcfg, fstatic, 0.5)
+    tk.reset_launches()
+    img = shard.tile_sharded_render(
+        d.xyz, d.scaling, d.rotation, d.opacity.reshape(-1), None,
+        eval_camera(dev), bg, width=W, height=H, n_tile=2, shs=d.shs,
+        sh_degree=3, config=rcfg)
+    out["render"] = {"launches": dict(tk.launches),
+                     "image": img.cpu().numpy() if rank == 0 else None}
+    cfg_path, model = trainer
+    info = arena_scene_info(params, nets, alive, fstatic, mcfg, rcfg, dev)
+    readers.SCENE_READERS[LOADER] = lambda *a, **k: info
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    tr = cli.train_main(["-s", "in-memory", "--config", cfg_path, "-m",
+                         model, "--device", "cuda", "--quiet"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    hist = {h["it"]: h for h in tr.history}
+    c = tr.cfg
+    out["trainer"] = {
+        "losses": {i: h["loss"] for i, h in hist.items()},
+        "bad_steps": tr.state.bad_steps,
+        "bad_logged": any("bad_step" in h for h in tr.history),
+        "overflows": tr.overflows, "dropped_hwm": tr.state.dropped_hwm,
+        "step": tr.state.step, "checksum": state_checksum(tr.state),
+        "writes": tr.scene.writes, "run_s": run_s,
+        "dynamic_its_per_s": (c.iterations - c.static_iteration) / (
+            hist[c.iterations]["elapsed_s"]
+            - hist[c.static_iteration]["elapsed_s"]),
+        "launches": dict(tk.launches), "points": tr.n_alive(),
+        "densify": tr.densify_log}
+    return out
+
+
+def parallel_phase(cfg, mcfg, params, nets, alive, fstatic, rcfg, tin,
+                   phase11, dev, tk):
+    """Phase 13: the parallel path on the card.  (a) K2, K1 and K3 on the
+    arena frame's strip of 16 tile rows from row 16 (the partial bottom
+    row included) against their plain versions; (b) 2 and 4 strips by
+    rasterize against the full frame, forward and gradients; (c) the
+    2x1, 1x2 (2 ranks) and 2x2 (4 ranks) meshes sharing the one card under
+    gloo, PARALLEL_STEPS steps each against the single process; (d)
+    tile_sharded_render over 2 ranks against the single render; (e) phase
+    11's trainer on 2 data ranks against phase 11.  Returns (the
+    "parallel" results, the kernels' launches by run)."""
+    import torch
+    from saro_gs_torch import render, scene
+    from saro_gs_torch.data import readers
+    from saro_gs_torch.models import gaussians as gm
+    from saro_gs_torch.ops import binning, compositing, projection
+    from saro_gs_torch.ops.rasterize import _clip_to_strip, rasterize
+    from saro_gs_torch.parallel import runtime
+    from saro_gs_torch import timing
+    from saro_gs_torch.train import step as step_mod
+
+    t_phase = time.perf_counter()
+    T = rcfg.tile_x
+    gx, gy = -(-W // T), -(-H // T)
+    bg = torch.ones(3, device=dev)
+    cam = eval_camera(dev)
+    with torch.no_grad():
+        d = gm.deform(params, nets, mcfg, fstatic, 0.5)
+    active = alive * (d.state[:, 0] > render.EVAL_STATE_CUTOFF)
+    opac = d.opacity.reshape(-1)
+
+    # ---- (a) the strip kernels against their plain versions --------------
+    row0, rows = 16, 16
+    check(gy == 32 and H % T != 0, "the arena frame's tile rows changed")
+    pre = _clip_to_strip(projection.preprocess(
+        d.xyz, d.scaling, d.rotation, opac, cam, W, H, T, T, sh_degree=3,
+        shs=d.shs, active=active, tight_rect=rcfg.tight_rect), row0, rows)
+    offsets, tiles, rect, gattr, total = binning.expand_inputs(pre, opac)
+    check(total <= rcfg.max_instances, "strip: instances dropped")
+    exp_args = (offsets, tiles, rect, gattr, total, gx, rows, T, T,
+                rcfg.tight_rect, row0)
+    kk, kg, ka = tk.expand_instances(*exp_args)
+    pk, pg, pa = tk.expand_instances_plain(*exp_args)
+    torch.cuda.synchronize()
+    check(torch.equal(kk, pk) and torch.equal(kg, pg)
+          and torch.equal(ka.view(torch.int32), pa.view(torch.int32)),
+          "strip K2: differs from its plain version")
+    sa_, _, sstart, scount, _ = binning.sort_instances(kk, kg, ka,
+                                                       gx * rows)
+    fargs = (sa_, sstart, scount, bg, W, H, T, T)
+    kf = tk.forward_tiles(*fargs, rcfg.chunk, need_aux=True,
+                          grid_y_local=rows, y0_tiles=row0)
+    pf = compositing.forward_tiles(*fargs, need_aux=True, grid_y_local=rows,
+                                   y0_px=row0 * T)
+    torch.cuda.synchronize()
+    k1_err = float((kf.color - pf.color).abs().max())
+    for name in ("color", "depth", "final_t", "n_contrib"):
+        check(torch.equal(getattr(kf, name), getattr(pf, name)),
+              f"strip K1: {name} differs (colour max abs err {k1_err})")
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    d_strip = torch.randn(3, rows * T, W, generator=gen).to(dev)
+    bargs = (sa_, sstart, scount, bg, kf.n_contrib, kf.color, kf.final_t,
+             d_strip, W, H, T, T)
+    kb = tk.backward_tiles(*bargs, grid_y_local=rows, y0_tiles=row0)
+    pb = compositing.backward_tiles(*bargs, grid_y_local=rows,
+                                    y0_px=row0 * T)
+    k3_rel = k3_l2 = 0.0
+    for r in range(compositing.GRAD_ROWS):
+        scale = float(pb[r].abs().max())
+        check(scale > 0, f"strip K3: plain row {r} all zero")
+        k3_rel = max(k3_rel, float((kb[r] - pb[r]).abs().max()) / scale)
+        k3_l2 = max(k3_l2, float((kb[r] - pb[r]).double().norm()
+                                 / pb[r].double().norm()))
+    check(k3_rel <= K3_TOL and k3_l2 <= K3_TOL,
+          f"strip K3: {k3_rel} of a row's max, {k3_l2} in relative L2")
+    check(not bool(kb[:, (pb == 0).all(dim=0)].any()),
+          "strip K3: a slot the replay never visits is not zero")
+    strip_ms = {
+        "K2": timing.event_ms(lambda: tk.expand_instances(*exp_args), 20),
+        "K1": timing.event_ms(lambda: tk.forward_tiles(
+            *fargs, rcfg.chunk, need_aux=True, grid_y_local=rows,
+            y0_tiles=row0), 20),
+        "K3": timing.event_ms(lambda: tk.backward_tiles(
+            *bargs, grid_y_local=rows, y0_tiles=row0), 10)}
+    log(f"parallel (a): the strip of {rows} tile rows from row {row0} "
+        f"({total} instances): K2 and K1 equal to the bit to their plain "
+        f"versions, K3 {k3_rel:.3g} of a row's max and {k3_l2:.3g} in "
+        f"relative L2 (limits {K3_TOL:g}); ms {strip_ms}")
+
+    # ---- (b) strips by rasterize against the full frame -------------------
+    rc = rcfg._replace(need_aux=True)
+    leaves = [x.detach().requires_grad_() for x in
+              (d.xyz, d.scaling, d.rotation, opac, d.shs)]
+
+    def frame(config, row0=0):
+        return rasterize(*leaves[:4], cam, bg, width=W, height=H,
+                         sh_degree=3, config=config, shs=leaves[4],
+                         active=active, row0=row0)
+    d_full = torch.randn(3, H, W, generator=gen).to(dev)
+    full = frame(rc)
+    g_full = torch.autograd.grad((full.color * d_full).sum(), leaves)
+    strip_diff, grad_rel = {}, {}
+    for n_strip in (2, 4):
+        srows = -(-gy // n_strip)
+        d_pad = torch.nn.functional.pad(d_full,
+                                        (0, 0, 0, n_strip * srows * T - H))
+        outs, g_sum = [], None
+        for k in range(n_strip):
+            o = frame(rc._replace(strip_rows=srows), k * srows)
+            g = torch.autograd.grad(
+                (o.color * d_pad[:, k * srows * T:(k + 1) * srows * T])
+                .sum(), leaves)
+            g_sum = g if g_sum is None else [a + b for a, b in zip(g_sum, g)]
+            outs.append(o)
+            check(o.num_dropped == 0, "strips: instances dropped")
+        diff = 0.0
+        for key in ("color", "depth", "final_t", "n_contrib"):
+            dim = 1 if key == "color" else 0
+            got = torch.cat([getattr(o, key) for o in outs],
+                            dim=dim).narrow(dim, 0, H)
+            ref = getattr(full, key)
+            diff = max(diff, float((got.double() - ref.double()).abs()
+                                   .max()))
+            check(torch.equal(got, ref),
+                  f"strips: {n_strip} strips' {key} differ from the frame")
+        strip_diff[n_strip] = diff
+        grad_rel[n_strip] = {
+            name: float((a - b).abs().max() / (a.abs().max() + 1e-6))
+            for name, a, b in zip(("means", "scales", "quats", "opacities",
+                                   "shs"), g_full, g_sum)}
+        check(max(grad_rel[n_strip].values()) <= 1e-5,
+              f"strips: {n_strip} strips' gradients {grad_rel[n_strip]}")
+    log(f"parallel (b): 2 and 4 strips equal the frame to the bit (largest "
+        f"difference {strip_diff}); their gradients sum to the frame's "
+        f"within {max(max(g.values()) for g in grad_rel.values()):.3g} of "
+        f"each group's max (limit 1e-5): {grad_rel}")
+    del leaves, g_full, g_sum, outs, full
+
+    # ---- (c) the single-process reference of the meshes --------------------
+    # and the same steps with the views in another order, which sums
+    # every gradient in another order: the single process's own spread
+    runs1 = []
+    for order in (list(range(BATCH)), ALT_ORDER):
+        views = (projection.CameraParams(*[x[order] for x in tin.cams]),
+                 tin.gt[order], tin.ts[order])
+        state = step_mod.clone_state(tin.state0)
+        metrics, secs = [], []
+        for k in range(PARALLEL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_mod.train_step_core(
+                state, *views, bg, fstatic, tin.st, stage="dynamatic",
+                sh_degree=3, scale_integral=True)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            metrics.append(m)
+            if k == 0:
+                first = gate_leaves(state)
+        runs1.append((metrics, secs, first, gate_leaves(state)))
+        del state
+    (ref_metrics, ref_s, ref_first, ref), (_, _, _, alt) = runs1
+    torch.cuda.empty_cache()
+    # (e)'s config: phase 11's on 2 data ranks
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    with open(ARENA_CONFIG) as f:
+        config = json.load(f)
+    config.update(SCHEDULE, loader=LOADER, mesh_data=2)
+    cfg_path = os.path.join(MESH_DIR, "arena_150_mesh.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    model = os.path.join(MESH_DIR, "model")
+    runs = {}
+    for world, meshes, trainer in ((2, [(2, 1), (1, 2)], (cfg_path, model)),
+                                   (4, [(2, 2)], None)):
+        t0 = time.perf_counter()
+        try:
+            outs = runtime.launch_local(
+                parallel_rank, world,
+                (meshes, tin.st.rcfg.max_instances, rcfg.max_instances,
+                 trainer),
+                init_method=f"file://{MESH_DIR}/store_{world}",
+                backend="gloo", timeout_s=PARALLEL_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"parallel: a rank of {world} failed:\n{e}")
+        runs[world] = (outs, time.perf_counter() - t0)
+        log(f"parallel: {world} ranks on one card took "
+            f"{runs[world][1]:.1f} s")
+
+    results = {"steps": PARALLEL_STEPS, "batch": BATCH, "ranks_share_card":
+               torch.cuda.device_count(), "backend": "gloo",
+               "single": {"steps_per_s": (PARALLEL_STEPS - 1)
+                          / sum(ref_s[1:]), "first_step_s": ref_s[0]},
+               "meshes": {}, "strip_ms": strip_ms, "strip_k3_rel": k3_rel,
+               "strip_k3_l2": k3_l2, "strip_diff": strip_diff,
+               "strip_grad_rel": grad_rel}
+    launches = {}
+    for world, (outs, _) in runs.items():
+        for name in outs[0]:
+            if name in ("render", "trainer"):
+                continue
+            rk = [o[name] for o in outs]
+            check(len({r["checksum"] for r in rk}) == 1,
+                  f"parallel {name}: the ranks' states differ")
+            for r in rk:
+                for i, m in enumerate(r["metrics"]):
+                    check(m["bad_step"] == 0 and m["dropped"] == 0,
+                          f"parallel {name}: step {i} went wrong: {m}")
+            for i, (a, b) in enumerate(zip(ref_metrics, rk[0]["metrics"])):
+                check(abs(b["loss"] - a["loss"]) <= 1e-5 * abs(a["loss"]),
+                      f"parallel {name}: loss {b['loss']} against "
+                      f"{a['loss']} at step {i}")
+            got_first, got = rk[0]["leaves"]
+            errs = state_errors(ref_first, ref, alt, got_first, got)
+            check(all(e["mu_step1"] <= 1e-5 and e["step1"] <= 2e-5
+                      for e in errs.values()),
+                  f"parallel {name}: step 1 off the single process: {errs}")
+            check(all(e["last"] <= max(2e-5, 2 * e["spread"])
+                      for e in errs.values()),
+                  f"parallel {name}: step {PARALLEL_STEPS} off the single "
+                  f"process by more than twice its own spread: {errs}")
+            acc = np.abs(got_first["xyz_grad_accum"]
+                         - ref_first["xyz_grad_accum"])
+            check(bool(np.all(acc <= 1e-3 * np.abs(
+                ref_first["xyz_grad_accum"]) + 1e-6)),
+                  f"parallel {name}: xyz_grad_accum off by {acc.max()}")
+            lz = rk[0]["launches"]
+            check(all(lz[k] > 0 for k in lz),
+                  f"parallel {name}: a kernel never launched: {lz}")
+            launches[name] = lz
+            sps = (PARALLEL_STEPS - 1) / sum(rk[0]["step_s"][1:])
+            loss_rel = max(abs(b["loss"] - a["loss"]) / abs(a["loss"])
+                           for a, b in zip(ref_metrics, rk[0]["metrics"]))
+            results["meshes"][name] = {
+                "ranks": world, "steps_per_s": sps,
+                "collective_ms": rk[0]["collective_ms"],
+                "first_step_s": rk[0]["step_s"][0], "errors": errs,
+                "loss_rel": loss_rel,
+                "loss": [m["loss"] for m in rk[0]["metrics"]],
+                "launches_rank0": lz}
+            log(f"parallel (c) {name} on {world} ranks: states equal to the "
+                f"bit on every rank; losses within {loss_rel:.3g} (limit "
+                f"1e-5); against the single process (step 1's gradient "
+                f"within 1e-5 of its max and the parameters within 2e-5 "
+                f"where it is significant; step {PARALLEL_STEPS} within "
+                f"twice the single process's spread): {errs}; "
+                f"{sps:.3f} steps/s (single process "
+                f"{results['single']['steps_per_s']:.3f}); collectives "
+                f"alone on rank 0 (ms) {rk[0]['collective_ms']}; rank 0 "
+                f"launches {lz}")
+
+    # ---- (d) the tile-sharded render --------------------------------------
+    outs = runs[2][0]
+    with torch.no_grad():
+        single = rasterize(d.xyz, d.scaling, d.rotation, opac, cam, bg,
+                           width=W, height=H, sh_degree=3, config=rcfg,
+                           shs=d.shs).color.cpu().numpy()
+    img = outs[0]["render"]["image"]
+    render_err = float(np.abs(img - single).max())
+    check(img.shape == single.shape and np.array_equal(img, single),
+          f"parallel (d): tile_sharded_render differs by {render_err}")
+    launches["tile_sharded_render"] = outs[0]["render"]["launches"]
+    log(f"parallel (d): tile_sharded_render over 2 ranks equals the single "
+        f"render to the bit; rank 0 launches "
+        f"{launches['tile_sharded_render']}")
+
+    # ---- (e) the trainer on 2 data ranks ----------------------------------
+    trs = [o["trainer"] for o in outs]
+    tr0 = trs[0]
+    check(len({t["checksum"] for t in trs}) == 1,
+          "parallel (e): the ranks' trainer states differ")
+    check([t["writes"] for t in trs] == [True, False],
+          "parallel (e): rank 0, and only rank 0, must write")
+    check(tr0["step"] == SCHEDULE["iterations"] and tr0["bad_steps"] == 0
+          and not tr0["bad_logged"] and not tr0["overflows"]
+          and tr0["dropped_hwm"] == 0,
+          f"parallel (e): bad steps or drops: {tr0}")
+    losses11 = phase11["losses"]
+    rel = {i: abs(tr0["losses"][i] - losses11[i]) / abs(losses11[i])
+           for i in (1, 50, 100)}
+    check(rel[1] <= 1e-5 and rel[50] <= 1e-3 and rel[100] <= 1e-3,
+          f"parallel (e): logged losses off phase 11's: {rel}")
+    ckpt = os.path.join(model, "point_cloud",
+                        f"iteration_{SCHEDULE['iterations']}")
+    check(os.path.isdir(ckpt) and os.path.exists(
+        os.path.join(model, "history.json")),
+        "parallel (e): rank 0 wrote no checkpoint or history")
+    tcfg = dataclasses.replace(phase11["cfg"], model_path=model)
+    readers.SCENE_READERS[LOADER] = lambda *a, **k: phase11["info"]
+    try:
+        loaded = scene.Scene(tcfg,
+                             load_iteration=str(SCHEDULE["iterations"]),
+                             device=dev)
+    finally:
+        readers.SCENE_READERS.pop(LOADER, None)
+    test_cam = phase11["test_camera"]
+    out, _ = render.test_render(
+        test_cam.raster_params(dev), test_cam.timestamp, loaded.params,
+        loaded.nets, loaded.alive, mcfg, loaded.fstatic, bg, width=W,
+        height=H, sh_degree=tcfg.sh_degree, rcfg=phase11["eval_rcfg"])
+    mine = torch.clamp(out.color, 0, 1).double()
+    theirs = torch.clamp(phase11["render"], 0, 1).double()
+    mse = float(((mine - theirs) ** 2).mean())
+    ckpt_psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
+    check(out.num_dropped == 0 and ckpt_psnr >= 50.0,
+          f"parallel (e): the 2-rank checkpoint renders {ckpt_psnr} dB "
+          "from phase 11's")
+    launches["trainer_2x1"] = tr0["launches"]
+    check(all(v > 0 for v in tr0["launches"].values()),
+          f"parallel (e): a kernel never launched: {tr0['launches']}")
+    log(f"parallel (e): 2 data ranks trained {tr0['step']} iterations in "
+        f"{tr0['run_s']:.1f} s, {tr0['dynamic_its_per_s']:.3f} it/s over the "
+        f"dynamic stage (phase 11: {phase11['dyn']:.3f}); losses at 1, 50, "
+        f"100 off phase 11's by {rel} (limits 1e-5, 1e-3, 1e-3); rank "
+        f"states equal; {tr0['points']} points; the checkpoint, written by "
+        f"rank 0 alone, renders {ckpt_psnr:.2f} dB from phase 11's")
+    phase_s = time.perf_counter() - t_phase
+    log(f"parallel: the phase took {phase_s:.1f} s; card {smi_line()}")
+    results.update({
+        "render_max_abs_err": render_err,
+        "trainer": {k: tr0[k] for k in ("run_s", "dynamic_its_per_s",
+                                        "points", "launches")},
+        "trainer_dynamic_its_per_s_phase11": phase11["dyn"],
+        "trainer_loss_rel": rel, "trainer_ckpt_psnr_db": ckpt_psnr,
+        "spawn_s": {w: r[1] for w, r in runs.items()}, "phase_s": phase_s})
+    return results, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
     sys.path.insert(0, HERE)
-    from saro_gs_torch import config as cfg_mod
-    from saro_gs_torch import render, scene, timing
+    from saro_gs_torch import render, timing
     from saro_gs_torch.data import cameras
-    from saro_gs_torch.models import densify as dens
     from saro_gs_torch.models import field as field_mod
     from saro_gs_torch.models import gaussians as gm
     from saro_gs_torch.ops import (binning, compositing, grid_scatter, mip,
@@ -780,14 +1396,10 @@ def main():
     log(f"build: {secs:.2f} s (nvcc, {len(tk.launches)} kernels)")
 
     # ---- the model ----------------------------------------------------------
-    cfg = cfg_mod.load_cfg_args(os.path.join(ARENA, "cfg_args.json"))
-    mcfg = cfg.model_config()
-    params, nets, alive, fstatic, npts = scene.load_gaussian_checkpoint(
-        PLY, mcfg, device=dev)
+    cfg, mcfg, params, nets, alive, fstatic, npts = load_arena(dev)
     with torch.no_grad():
         feat = gm.field_feat(params, nets, mcfg, fstatic)
-    cam = cameras.camera_from_c2w(cameras.ring_cameras(21)[0], 0.85, W, H,
-                                  0.0).raster_params(dev)
+    cam = eval_camera(dev)
     bg = torch.ones(3, device=dev)        # white background (cfg_args)
     rcfg = cfg.raster_config()._replace(need_aux=False)
     log(f"model: {npts} Gaussians, planes "
@@ -1124,42 +1736,16 @@ def main():
     check(psnr >= 50.0 and maxerr < 4.0 / 255.0, "parity with JAX failed")
 
     # ---- 9. the training slice ----------------------------------------------
-    with torch.no_grad():
-        integral = gm.temporal_integral(params, nets, mcfg, fstatic)
-    alive_t, inv_integral = dens.integral_prune_and_lr(
-        alive, integral, cfg.min_intergral, cfg.inv_lr_clip)
-    ring = cameras.ring_cameras(BATCH)
-    centres = np.stack([c2w[:3, 3] for c2w in ring])
-    # the scene extent as the trainer takes it from its cameras: 1.1 times
-    # the largest distance of a camera from the cameras' centre
-    extent = 1.1 * float(np.linalg.norm(centres - centres.mean(0),
-                                        axis=1).max())
-    tcams = [cameras.camera_from_c2w(c2w, 0.85, W, H, 0.0).raster_params(dev)
-             for c2w in ring]
-    cams = projection.CameraParams(*[torch.stack(x) for x in zip(*tcams)])
-    gt = torch.as_tensor(golden.noise_gt(BATCH, H, W), device=dev)
-    ts_train = torch.linspace(0.1, 0.9, BATCH, device=dev).reshape(-1, 1, 1)
-    train_rcfg = cfg.raster_config()
-    need = 0
-    with torch.no_grad():
-        for i in range(BATCH):
-            pkg = render.train_render(
-                tcams[i], ts_train[i], params, nets, alive_t, mcfg, fstatic,
-                bg, width=W, height=H, stage="dynamatic", sh_degree=3,
-                rcfg=train_rcfg._replace(max_instances=1 << 22), feat=feat)
-            need = max(need, pkg.out.num_instances + pkg.out.num_dropped)
-    train_cap = max(-(-int(need * 1.15) // 65536) * 65536, 65536)
-    train_rcfg = train_rcfg._replace(max_instances=train_cap)
-    st = step_mod.StepStatics(
-        mcfg=mcfg, rcfg=train_rcfg, weights=cfg.loss_weights(), width=W,
-        height=H, cfg_lrs=step_mod.make_lr_statics(cfg), extent=extent,
-        scale_floor=cfg.scale_floor)
-    state0 = step_mod.init_state(params, nets, alive_t)._replace(
-        inv_integral=inv_integral)
+    tin = train_inputs(cfg, mcfg, params, nets, alive, fstatic, dev)
+    cams, gt, ts_train, st, state0 = (tin.cams, tin.gt, tin.ts, tin.st,
+                                      tin.state0)
+    train_cap = st.rcfg.max_instances
+    alive_t = state0.alive
     log(f"train: {int(alive_t.sum())} of {npts} Gaussians alive after the "
-        f"integral prune, LR scaling up to {float(inv_integral.max()):.2f}, "
-        f"extent {extent:.3f}, weights {tuple(cfg.loss_weights())}, "
-        f"max_instances {train_cap} ({need} needed)")
+        f"integral prune, LR scaling up to "
+        f"{float(state0.inv_integral.max()):.2f}, extent {st.extent:.3f}, "
+        f"weights {tuple(cfg.loss_weights())}, max_instances {train_cap} "
+        f"({tin.need} needed)")
 
     def one_step(state):
         return step_mod.train_step_core(
@@ -1288,15 +1874,21 @@ def main():
           "gradient parity with JAX failed")
 
     # ---- 11. the trainer --------------------------------------------------
-    trainer, trainer_counts, info, losses11 = trainer_phase(
+    trainer, trainer_counts, info, phase11 = trainer_phase(
         params, nets, alive, fstatic, mcfg, rcfg, dev, tk)
     torch.cuda.empty_cache()
 
     # ---- 12. the arena trainer from disk ------------------------------------
     trainer_disk, disk_counts = disk_trainer_phase(
-        info, losses11, trainer["dynamic_its_per_s"], dev, tk)
+        info, phase11["losses"], trainer["dynamic_its_per_s"], dev, tk)
+    torch.cuda.empty_cache()
 
-    # ---- 13. summary --------------------------------------------------------
+    # ---- 13. the parallel path ----------------------------------------------
+    parallel, parallel_counts = parallel_phase(
+        cfg, mcfg, params, nets, alive, fstatic, rcfg, tin,
+        dict(phase11, info=info), dev, tk)
+
+    # ---- 14. summary --------------------------------------------------------
     k4m = k4[cases[0][0]]
     kernels = [
         {"name": "expand_instances (K2)", "route": "cuda",
@@ -1305,6 +1897,8 @@ def main():
          "launches": train_counts["expand"],
          "launches_trainer": trainer_counts["expand"],
          "launches_trainer_disk": disk_counts["expand"],
+         "launches_parallel": {run: c["expand"]
+                               for run, c in parallel_counts.items()},
          "launches_render": counts["expand"], "max_abs_err": k2_err,
          "check": "exact", "ms": k2_ms, "ms_by": k2_src,
          "wrapper_ms": k2_wrapper_ms,
@@ -1316,6 +1910,8 @@ def main():
          "launches": train_counts["forward"],
          "launches_trainer": trainer_counts["forward"],
          "launches_trainer_disk": disk_counts["forward"],
+         "launches_parallel": {run: c["forward"]
+                               for run, c in parallel_counts.items()},
          "launches_render": counts["forward"], "max_abs_err": col_err,
          "check": "colour, depth, final T, n_contrib equal to the bit",
          "band": band, "batch": rcfg.chunk,
@@ -1330,6 +1926,8 @@ def main():
          "launches": train_counts["backward"],
          "launches_trainer": trainer_counts["backward"],
          "launches_trainer_disk": disk_counts["backward"],
+         "launches_parallel": {run: c["backward"]
+                               for run, c in parallel_counts.items()},
          "max_abs_err": k3_err,
          "check": f"each row <= {K3_TOL:g} of its max and in relative L2, "
                   "unvisited slots zero, two launches bit-equal",
@@ -1344,6 +1942,8 @@ def main():
          "launches": train_counts["grid_scatter"],
          "launches_trainer": trainer_counts["grid_scatter"],
          "launches_trainer_disk": disk_counts["grid_scatter"],
+         "launches_parallel": {run: c["grid_scatter"]
+                               for run, c in parallel_counts.items()},
          "max_abs_err": k4_err,
          "check": "<= 1e-5 of the output's max, two launches bit-equal",
          "shape": cases[0][0],
@@ -1375,6 +1975,7 @@ def main():
                       "k4_shapes": k4}), flush=True)
     print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"trainer_disk": trainer_disk}), flush=True)
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

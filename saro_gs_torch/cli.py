@@ -10,6 +10,14 @@ cameras.json, history.json, exp_log.txt, <it>_runtimeresults.json and
 checkpoints under point_cloud/ (train); the render dumps under
 test/ours_<it>/ and <it>_runtimeresults.json (test).  ``--device``
 defaults to ``cuda``.
+
+Training on several processes (a mesh of mesh_data x mesh_tile ranks in
+the config; parallel/runtime.py):
+
+    torchrun --nproc_per_node N -m saro_gs_torch.cli train -s <data_dir> \
+        --config <json> [--device cpu]
+
+Rank r takes card LOCAL_RANK % device_count; only rank 0 writes.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from . import DEFAULT_DEVICE
 def train_main(argv=None):
     from .config import load_config, save_cfg_args
     from .eval import quick_test_report
+    from .parallel import runtime
     from .scene import Scene
     from .train.trainer import Trainer
 
@@ -48,6 +57,12 @@ def train_main(argv=None):
                         "iteration (with --start_checkpoint)")
     args = p.parse_args(argv)
 
+    rank = runtime.init_distributed(device=args.device)
+    if runtime.group_size() > 1:
+        print(f"[multi-process] rank {rank}/{runtime.group_size()}",
+              flush=True)
+    writer = rank == 0
+    device = runtime.rank_device(args.device)
     overrides = {"source_path": args.source_path,
                  "exp_name": args.exp_name}
     if args.model_path:
@@ -60,14 +75,15 @@ def train_main(argv=None):
     if not cfg.model_path:
         cfg.model_path = os.path.join("log", cfg.dataset or "scene",
                                       cfg.exp_name)
-    os.makedirs(cfg.model_path, exist_ok=True)
-    save_cfg_args(cfg, os.path.join(cfg.model_path, "cfg_args.json"))
+    if writer:
+        os.makedirs(cfg.model_path, exist_ok=True)
+        save_cfg_args(cfg, os.path.join(cfg.model_path, "cfg_args.json"))
     if not cfg.testing_iterations:
         cfg.testing_iterations = [cfg.test_iteration] + [
             i for i in range(cfg.densify_until_iter, cfg.iterations)
             if i % 500 == 0]
 
-    scene = Scene(cfg, device=args.device)
+    scene = Scene(cfg, device=device)
     if args.start_checkpoint:
         scene.load_checkpoint(args.start_checkpoint)
         print(f"warm-start from {args.start_checkpoint}: "
@@ -111,8 +127,9 @@ def train_main(argv=None):
     trainer.run(eval_fn=eval_fn)
     scene.save(trainer.state.step, trainer.state.points, trainer.state.nets,
                trainer.state.alive)
-    with open(os.path.join(cfg.model_path, "history.json"), "w") as f:
-        json.dump(trainer.history, f)
+    if writer:
+        with open(os.path.join(cfg.model_path, "history.json"), "w") as f:
+            json.dump(trainer.history, f)
     return trainer
 
 

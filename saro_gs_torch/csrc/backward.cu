@@ -63,6 +63,12 @@
 // d_conic (3, the true b-gradient), d_opacity (1).  As in the reference
 // the 0.99 clamp is NOT gated: d_opacity = g * d_alpha even where the
 // clamp cut.  Pixels outside the image contribute nothing.
+//
+// Strip mode (tile-axis sharding, saro_gs_tpu/ops/tile_kernels.py:941):
+// as in forward.cu, the tiles are a strip's, strip-local, its first pixel
+// row y0_px, the image inputs its `rows` rows; pixel coordinates, the
+// inside test and the NDC scale stay the full frame's
+// (saro_gs_tpu/ops/compositing.py:168-171).
 
 // Built with -fmad=false like K1, so the replay's decisions round as the
 // forward's; the gradient arithmetic, held to its plain version by a
@@ -183,8 +189,8 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
 backward_kernel(const int* __restrict__ order, const int* __restrict__ bound,
                 const int* __restrict__ tile_start,
                 const float* __restrict__ attr, int L, int width, int height,
-                int grid_x, int tile_x, int tile_y, int chunk,
-                const float* __restrict__ bg,
+                int grid_x, int tile_x, int tile_y, int y0_px, int rows,
+                int chunk, const float* __restrict__ bg,
                 const int* __restrict__ n_contrib,
                 const float* __restrict__ out_color,
                 const float* __restrict__ final_t,
@@ -224,10 +230,11 @@ backward_kernel(const int* __restrict__ order, const int* __restrict__ bound,
     p_ok = tid < bw * bh;
   }
   const int px = (t % grid_x) * tile_x + lx;
-  const int py = (t / grid_x) * tile_y + y0 + ly;
-  const bool inside = p_ok && px < width && py < height;
-  const size_t hw = (size_t)height * width;
-  const size_t pix = (size_t)py * width + px;
+  const int ly_buf = (t / grid_x) * tile_y + y0 + ly;   // row in the buffer
+  const int py = ly_buf + y0_px;
+  const bool inside = p_ok && px < width && ly_buf < rows && py < height;
+  const size_t hw = (size_t)rows * width;
+  const size_t pix = (size_t)ly_buf * width + px;
 
   // a pixel outside the image replays nothing (nc = 0)
   int nc = inside ? n_contrib[pix] : 0;
@@ -406,14 +413,17 @@ static size_t smem_bytes(int threads, int chunk) {
 // Returns the cudaError_t of the launch (0 = success).  grad [9, L] must
 // be zeroed by the caller; order [n_tiles] is a permutation of the tiles
 // (the launch order), bound [n_tiles] each tile's replay bound
-// (min(tile_count, the tile's largest n_contrib)).  A tile is a cluster of
+// (min(tile_count, the tile's largest n_contrib)); the image buffers have
+// `rows` rows, the first at global pixel row y0_px (a whole frame: 0 and
+// height).  A tile is a cluster of
 // kSplit blocks of roundup32(tile_x * ceil(tile_y / kSplit)) <= 256
 // threads; tile_y >= kSplit.
 extern "C" int saro_backward_tiles(const void* order, const void* bound,
                                    const void* tile_start, const void* attr,
                                    int L, int width, int height, int grid_x,
                                    int grid_y, int tile_x, int tile_y,
-                                   int chunk, const void* bg,
+                                   int y0_px, int rows, int chunk,
+                                   const void* bg,
                                    const void* n_contrib,
                                    const void* out_color, const void* final_t,
                                    const void* d_color, void* grad,
@@ -431,8 +441,9 @@ extern "C" int saro_backward_tiles(const void* order, const void* bound,
   if (err != cudaSuccess) return (int)err;
   backward_kernel<<<n_tiles * kSplit, threads, smem, (cudaStream_t)stream>>>(
       (const int*)order, (const int*)bound, (const int*)tile_start,
-      (const float*)attr, L, width, height, grid_x, tile_x, tile_y, chunk,
-      (const float*)bg, (const int*)n_contrib, (const float*)out_color,
-      (const float*)final_t, (const float*)d_color, (float*)grad);
+      (const float*)attr, L, width, height, grid_x, tile_x, tile_y, y0_px,
+      rows, chunk, (const float*)bg, (const int*)n_contrib,
+      (const float*)out_color, (const float*)final_t, (const float*)d_color,
+      (float*)grad);
   return (int)cudaGetLastError();
 }

@@ -31,6 +31,11 @@
 // emission order.  Invalid slots take the sentinel tile grid_x*grid_y with
 // depth 0: they sort past every real tile and never composite.
 //
+// Strip mode (tile-axis sharding): the rects' rows are strip-local and
+// y0_tiles is the strip's first global tile row, so the cull's tile origin
+// is ((ty + y0_tiles) * tile_y) in the splat means' full-frame pixels, as
+// saro_gs_tpu/ops/binning.py:417-419; the keys keep strip-local tile ids.
+//
 // Arithmetic: built with -fmad=false and written in the plain version's
 // order (tile_kernels._corner_keep), so the keep decision is bit-identical
 // to PyTorch's eager ops on the same card.
@@ -68,7 +73,8 @@ __global__ void __launch_bounds__(kThreads)
 expand_kernel(const int* __restrict__ offsets, const int* __restrict__ tiles,
               const int* __restrict__ rect, const float* __restrict__ gattr,
               int n, int n_inst, int grid_x, int grid_y, int tile_x,
-              int tile_y, int corner_cull, long long* __restrict__ keys,
+              int tile_y, int y0_tiles, int corner_cull,
+              long long* __restrict__ keys,
               int* __restrict__ gid_out, float* __restrict__ attr) {
   // the owners of the block's first and last slots bound every owner of
   // the block's slots
@@ -114,7 +120,7 @@ expand_kernel(const int* __restrict__ offsets, const int* __restrict__ tiles,
     // largest alpha over the tile's pixels bounded through the distance
     // from the mean to the tile's pixel rect
     const float px0 = (float)(tx * tile_x);
-    const float py0 = (float)(ty * tile_y);
+    const float py0 = (float)((ty + y0_tiles) * tile_y);
     const float ddx =
         max_nan(max_nan(px0 - mx, mx - (px0 + (float)tile_x - 1.0f)), 0.0f);
     const float ddy =
@@ -139,18 +145,20 @@ expand_kernel(const int* __restrict__ offsets, const int* __restrict__ tiles,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success).  One thread per
-// slot; offsets is the exclusive cumsum of tiles and n_inst <= its total.
+// slot; offsets is the exclusive cumsum of tiles and n_inst <= its total;
+// y0_tiles is a strip's first global tile row (0 for a whole frame).
 extern "C" int saro_expand_instances(const void* offsets, const void* tiles,
                                      const void* rect, const void* gattr,
                                      int n, int n_inst, int grid_x,
                                      int grid_y, int tile_x, int tile_y,
-                                     int corner_cull, void* keys, void* gid,
-                                     void* attr, void* stream) {
+                                     int y0_tiles, int corner_cull,
+                                     void* keys, void* gid, void* attr,
+                                     void* stream) {
   const int blocks = (n_inst + kThreads - 1) / kThreads;
   if (blocks == 0 || n == 0) return 0;
   expand_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)offsets, (const int*)tiles, (const int*)rect,
       (const float*)gattr, n, n_inst, grid_x, grid_y, tile_x, tile_y,
-      corner_cull, (long long*)keys, (int*)gid, (float*)attr);
+      y0_tiles, corner_cull, (long long*)keys, (int*)gid, (float*)attr);
   return (int)cudaGetLastError();
 }

@@ -62,6 +62,13 @@
 //  * colour = C + T * bg; n_contrib = 1-based rank of the last contributor
 //    in the tile's range.
 // Pixel coordinates are the integer pixel indices (no +0.5).
+//
+// Strip mode (tile-axis sharding, saro_gs_tpu/ops/tile_kernels.py:670):
+// the tiles are a strip's, strip-local, whose first pixel row is y0_px;
+// pixel coordinates, and so the warp boxes of the cull, are full-frame,
+// the inside test is against the full frame's height, and the outputs are
+// the strip's `rows` rows (past the frame's bottom: background, T = 1,
+// depth 15, n_contrib 0).  A whole frame is y0_px = 0, rows = height.
 
 #include <climits>
 
@@ -91,8 +98,9 @@ forward_kernel(const int* __restrict__ order,
                const int* __restrict__ tile_start,
                const int* __restrict__ tile_count,
                const float* __restrict__ attr, int L, int width, int height,
-               int grid_x, int tile_x, int tile_y, int band_rows, int bands,
-               int chunk, const float* __restrict__ bg,
+               int grid_x, int tile_x, int tile_y, int y0_px, int rows,
+               int band_rows, int bands, int chunk,
+               const float* __restrict__ bg,
                float* __restrict__ color, float* __restrict__ depth_out,
                float* __restrict__ final_t, int* __restrict__ n_contrib) {
   extern __shared__ float4 smem4[];   // two [chunk][kStageRows] buffers
@@ -121,8 +129,10 @@ forward_kernel(const int* __restrict__ order,
     p_ok = tid < bw * bh;
   }
   const int px = (t % grid_x) * tile_x + lx;
-  const int py = (t / grid_x) * tile_y + y0 + ly;
-  const bool inside = p_ok && px < width && py < height;
+  const int ly_buf = (t / grid_x) * tile_y + y0 + ly;   // row in the buffer
+  const int py = ly_buf + y0_px;
+  const bool stored = p_ok && px < width && ly_buf < rows;
+  const bool inside = stored && py < height;
   const float pxf = (float)px;
   const float pyf = (float)py;
   const int start = tile_start[t];
@@ -235,9 +245,9 @@ forward_kernel(const int* __restrict__ order,
   // no block leaves with a copy into its shared memory in flight
   asm volatile("cp.async.wait_group 0;\n" ::);
 
-  if (inside) {
-    const size_t hw = (size_t)height * width;
-    const size_t pix = (size_t)py * width + px;
+  if (stored) {
+    const size_t hw = (size_t)rows * width;
+    const size_t pix = (size_t)ly_buf * width + px;
     color[pix] = C0 + T * bg[0];
     color[hw + pix] = C1 + T * bg[1];
     color[2 * hw + pix] = C2 + T * bg[2];
@@ -262,14 +272,16 @@ extern "C" int saro_forward_band_rows(int tile_x, int tile_y) {
 
 // Returns the cudaError_t of the launch (0 = success).  order [n_tiles] is
 // a permutation of the tiles (the launch order); n_contrib may be null
-// (need_aux=False).  A tile is ceil(tile_y / band_rows) blocks of
-// roundup32(tile_x * band_rows) threads, one band of rows each
-// (saro_forward_band_rows).
+// (need_aux=False); the outputs have `rows` rows, the first at global
+// pixel row y0_px (a whole frame: 0 and height).  A tile is
+// ceil(tile_y / band_rows) blocks of roundup32(tile_x * band_rows)
+// threads, one band of rows each (saro_forward_band_rows).
 extern "C" int saro_forward_tiles(const void* order, const void* tile_start,
                                   const void* tile_count, const void* attr,
                                   int L, int width, int height, int grid_x,
                                   int grid_y, int tile_x, int tile_y,
-                                  int chunk, const void* bg, void* color,
+                                  int y0_px, int rows, int chunk,
+                                  const void* bg, void* color,
                                   void* depth, void* final_t,
                                   void* n_contrib, void* stream) {
   const int band_rows = saro_forward_band_rows(tile_x, tile_y);
@@ -285,8 +297,8 @@ extern "C" int saro_forward_tiles(const void* order, const void* tile_start,
   if (err != cudaSuccess) return (int)err;
   forward_kernel<<<n_tiles * bands, threads, smem, (cudaStream_t)stream>>>(
       (const int*)order, (const int*)tile_start, (const int*)tile_count,
-      (const float*)attr, L, width, height, grid_x, tile_x, tile_y,
-      band_rows, bands, chunk, (const float*)bg, (float*)color,
+      (const float*)attr, L, width, height, grid_x, tile_x, tile_y, y0_px,
+      rows, band_rows, bands, chunk, (const float*)bg, (float*)color,
       (float*)depth, (float*)final_t, (int*)n_contrib);
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,7 @@ import numpy as np
 
 from .. import native
 from ..ops.projection import CameraParams
+from ..parallel.runtime import host_shard
 from .cameras import Camera
 
 
@@ -42,17 +43,29 @@ def stack_camera_params(cams: List[Camera]) -> CameraParams:
 
 class BatchLoader:
     """Endless shuffled batches, ``prefetch`` of them decoded ahead.
-    ``close()`` stops the pool."""
+    ``close()`` stops the pool.
+
+    ``shard=(i, n)`` gives rank i of n its share of every batch: the
+    shuffle and the batches of ``batch_size`` views are every rank's
+    alike (one seed), and each rank loads and yields only the views
+    ``runtime.host_shard`` deals it, ``batch_size // n`` of them.  The
+    shares of a batch are disjoint and together the batch one process
+    would load.  The order is a function of the seed alone: the threads
+    only decode."""
 
     def __init__(self, cameras: List[Camera], batch_size: int,
                  white_background: bool = False, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 666, prefetch: int = 4,
-                 drop_last: bool = True):
+                 drop_last: bool = True, shard=(0, 1)):
         if len(cameras) < batch_size:
             raise ValueError(f"{len(cameras)} cameras for batches of "
                              f"{batch_size}")
+        if batch_size % shard[1]:
+            raise ValueError(f"batches of {batch_size} views do not split "
+                             f"among {shard[1]} ranks")
         self.cameras = cameras
         self.batch_size = batch_size
+        self.shard = shard
         self.white_background = white_background
         self.shuffle = shuffle
         self.rng = np.random.RandomState(seed)
@@ -90,7 +103,8 @@ class BatchLoader:
             self.rng.shuffle(order)
         bs = self.batch_size
         stops = len(order) - bs + 1 if self.drop_last else len(order)
-        batches = iter([order[i:i + bs] for i in range(0, stops, bs)])
+        batches = iter([host_shard(order[i:i + bs], *self.shard)
+                        for i in range(0, stops, bs)])
         futures = [self.pool.submit(self._load_batch, b)
                    for _, b in zip(range(self.prefetch), batches)]
         while futures:

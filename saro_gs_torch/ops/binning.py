@@ -64,13 +64,15 @@ def expand_inputs(pre: PreprocessOut, opacity: torch.Tensor):
 
 def expand(pre: PreprocessOut, opacity: torch.Tensor, grid_x: int,
            grid_y: int, max_instances: int, tile_x: int, tile_y: int,
-           corner_cull: bool = True):
-    """Step 1: (keys, gid, attr, num_instances, num_dropped)."""
+           corner_cull: bool = True, y0_tiles: int = 0):
+    """Step 1: (keys, gid, attr, num_instances, num_dropped).  A strip's
+    rects (rasterize._clip_to_strip) are strip-local; ``y0_tiles`` is its
+    first global tile row, for the corner cull."""
     offsets, tiles, rect, gattr, total = expand_inputs(pre, opacity)
     n_inst = min(total, max_instances)
     keys, gid, attr = tile_kernels.expand_instances(
         offsets, tiles, rect, gattr, n_inst, grid_x, grid_y, tile_x, tile_y,
-        corner_cull)
+        corner_cull, y0_tiles)
     return keys, gid, attr, n_inst, max(total - max_instances, 0)
 
 
@@ -92,11 +94,13 @@ def sort_instances(keys: torch.Tensor, gid: torch.Tensor,
 def bin_gaussians_staged(pre: PreprocessOut, opacity: torch.Tensor,
                          grid_x: int, grid_y: int, max_instances: int,
                          tile_x: int, tile_y: int,
-                         corner_cull: bool = True) -> StagedBins:
-    """Expand, sort and range the instances of one view."""
+                         corner_cull: bool = True,
+                         y0_tiles: int = 0) -> StagedBins:
+    """Expand, sort and range the instances of one view, or of a strip of
+    ``grid_y`` tile rows from global tile row ``y0_tiles``."""
     keys, gid, attr, n_inst, n_drop = expand(
         pre, opacity, grid_x, grid_y, max_instances, tile_x, tile_y,
-        corner_cull)
+        corner_cull, y0_tiles)
     attr, ids, start, count, perm = sort_instances(keys, gid, attr,
                                                    grid_x * grid_y)
     return StagedBins(attr=attr, ids=ids, tile_start=start,

@@ -98,11 +98,13 @@ def warp_may_reach(rows, wx0, wx1, wy0, wy1):
 
 
 def patch_boxes(tile_ids: torch.Tensor, width: int, height: int,
-                tile_x: int, tile_y: int):
+                tile_x: int, tile_y: int, y0_px: int = 0):
     """The 8x4-pixel warp patches of the given tiles, as the kernels lay
     them out (tile_x a multiple of 8, tile_y of 4): the box of each
     patch's pixels inside the image, (x0, x1, y0, y1) float32 [T, Q], and
-    whether the patch has such a pixel."""
+    whether the patch has such a pixel.  ``y0_px``: the strip's first
+    pixel row (strip mode; tile ids are strip-local, the boxes and the
+    image's ``height`` full-frame)."""
     if tile_x % 8 or tile_y % 4:
         raise ValueError(f"tile {tile_x}x{tile_y}: 8x4 patches need a "
                          "width that is a multiple of 8 and a height that "
@@ -110,7 +112,8 @@ def patch_boxes(tile_ids: torch.Tensor, width: int, height: int,
     grid_x = (width + tile_x - 1) // tile_x
     q = torch.arange((tile_x // 8) * (tile_y // 4), device=tile_ids.device)
     x0 = ((tile_ids % grid_x) * tile_x)[:, None] + (q % (tile_x // 8)) * 8
-    y0 = ((tile_ids // grid_x) * tile_y)[:, None] + (q // (tile_x // 8)) * 4
+    y0 = ((tile_ids // grid_x) * tile_y + y0_px)[:, None] \
+        + (q // (tile_x // 8)) * 4
     x1 = torch.clamp(x0 + 7, max=width - 1)
     y1 = torch.clamp(y0 + 3, max=height - 1)
     ok = (x0 < width) & (y0 < height)
@@ -120,10 +123,12 @@ def patch_boxes(tile_ids: torch.Tensor, width: int, height: int,
 
 def cull_counts(attr: torch.Tensor, tile_start: torch.Tensor,
                 tile_count: torch.Tensor, width: int, height: int,
-                tile_x: int, tile_y: int, slots_per_pass: int = 1 << 16):
+                tile_x: int, tile_y: int, slots_per_pass: int = 1 << 16,
+                y0_px: int = 0):
     """(pairs, kept): the (8x4 patch, instance) pairs of every tile's range
     whose patch has a pixel in the image, and how many of them the warp
-    cull keeps (``warp_may_reach`` on each patch's whole box)."""
+    cull keeps (``warp_may_reach`` on each patch's whole box).  ``y0_px``
+    as in ``patch_boxes``."""
     dev = attr.device
     nt = tile_count.shape[0]
     tile_of = torch.repeat_interleave(torch.arange(nt, device=dev),
@@ -135,7 +140,7 @@ def cull_counts(attr: torch.Tensor, tile_start: torch.Tensor,
     for i in range(0, tile_of.shape[0], slots_per_pass):
         tids = tile_of[i:i + slots_per_pass]
         (x0, x1, y0, y1), ok = patch_boxes(tids, width, height, tile_x,
-                                           tile_y)
+                                           tile_y, y0_px)
         rows = attr[:6, slot[i:i + slots_per_pass]][:, :, None]
         reach = warp_may_reach(rows, x0, x1, y0, y1)
         pairs += int(ok.sum())
@@ -144,12 +149,14 @@ def cull_counts(attr: torch.Tensor, tile_start: torch.Tensor,
 
 
 def tile_pixel_coords(tile_ids: torch.Tensor, grid_x: int, tile_x: int,
-                      tile_y: int):
+                      tile_y: int, y0_px: int = 0):
     """Integer pixel coordinates [T, P] of the given tiles, row-major
-    within a tile (no +0.5: the reference's pixel centres)."""
+    within a tile (no +0.5: the reference's pixel centres).  ``y0_px`` is
+    added to every row: a strip's tile ids are strip-local while the splat
+    means are full-frame pixel coordinates."""
     lin = torch.arange(tile_x * tile_y, device=tile_ids.device)
     ox = (tile_ids % grid_x) * tile_x
-    oy = (tile_ids // grid_x) * tile_y
+    oy = (tile_ids // grid_x) * tile_y + y0_px
     px = ox[:, None] + (lin % tile_x)[None, :]
     py = oy[:, None] + (lin // tile_x)[None, :]
     return px, py
@@ -158,16 +165,18 @@ def tile_pixel_coords(tile_ids: torch.Tensor, grid_x: int, tile_x: int,
 def composite_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
                     tile_count: torch.Tensor, tile_ids: torch.Tensor,
                     bg: torch.Tensor, width: int, height: int, tile_x: int,
-                    tile_y: int):
+                    tile_y: int, y0_px: int = 0):
     """Composite the tiles ``tile_ids``; per-tile outputs
     (color [T,3,P], depth [T,P], final_t [T,P], n_contrib [T,P] int32,
-    n_walked [T,P] int32), P = tile_x * tile_y."""
+    n_walked [T,P] int32), P = tile_x * tile_y.  ``y0_px`` as in
+    ``tile_pixel_coords``; ``height`` stays the full frame's, so that the
+    rows of a partial bottom strip past it stay background."""
     dev = attr.device
     f32 = torch.float32
     grid_x = (width + tile_x - 1) // tile_x
     nt = tile_ids.shape[0]
     p = tile_x * tile_y
-    px, py = tile_pixel_coords(tile_ids, grid_x, tile_x, tile_y)
+    px, py = tile_pixel_coords(tile_ids, grid_x, tile_x, tile_y, y0_px)
     pxf, pyf = px.to(f32), py.to(f32)
     inside = (px < width) & (py < height)
     start = tile_start[tile_ids].long()
@@ -231,7 +240,8 @@ def composite_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
 
 def assemble(x: torch.Tensor, grid_y: int, grid_x: int, tile_y: int,
              tile_x: int, height: int, width: int) -> torch.Tensor:
-    """Per-tile [NT, (C,) P] -> image [(C,) H, W]."""
+    """Per-tile [NT, (C,) P] -> image [(C,) height, W]: the first
+    ``height`` rows of the tile grid (a strip keeps all of its rows)."""
     if x.dim() == 2:
         x = x.reshape(grid_y, grid_x, tile_y, tile_x).permute(0, 2, 1, 3)
         return x.reshape(grid_y * tile_y, grid_x * tile_x)[:height, :width]
@@ -241,30 +251,44 @@ def assemble(x: torch.Tensor, grid_y: int, grid_x: int, tile_y: int,
                      grid_x * tile_x)[:, :height, :width]
 
 
+def buffer_rows(height: int, tile_y: int, grid_y_local: int) -> int:
+    """Pixel rows of a render's buffers: the image's, or in strip mode
+    (``grid_y_local`` > 0 tile rows) the whole strip's, uncropped."""
+    return grid_y_local * tile_y if grid_y_local > 0 else height
+
+
 def forward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
                   tile_count: torch.Tensor, bg: torch.Tensor, width: int,
                   height: int, tile_x: int, tile_y: int,
-                  need_aux: bool = True) -> ForwardTilesOut:
-    """Composite every tile of the staged table (binning.StagedBins)."""
+                  need_aux: bool = True, grid_y_local: int = 0,
+                  y0_px: int = 0) -> ForwardTilesOut:
+    """Composite every tile of the staged table (binning.StagedBins).
+
+    Strip mode (saro_gs_tpu/ops/compositing.py:81-131): ``grid_y_local``
+    tile rows from global pixel row ``y0_px``, binned strip-locally; the
+    outputs are the strip's ``grid_y_local * tile_y`` rows, uncropped, and
+    ``height`` stays the full frame's."""
     grid_x = (width + tile_x - 1) // tile_x
-    grid_y = (height + tile_y - 1) // tile_y
+    grid_y = grid_y_local or (height + tile_y - 1) // tile_y
+    rows = buffer_rows(height, tile_y, grid_y_local)
     tids = torch.arange(grid_x * grid_y, device=attr.device)
     color, D, T, nc, walked = composite_tiles(
         attr, tile_start, tile_count, tids, bg, width, height, tile_x,
-        tile_y)
+        tile_y, y0_px)
 
     def img(x):
-        return assemble(x, grid_y, grid_x, tile_y, tile_x, height, width)
+        return assemble(x, grid_y, grid_x, tile_y, tile_x, rows, width)
     n_contrib = img(nc) if need_aux else torch.zeros(
-        (height, width), dtype=torch.int32, device=attr.device)
+        (rows, width), dtype=torch.int32, device=attr.device)
     return ForwardTilesOut(color=img(color), depth=img(D), final_t=img(T),
                            n_contrib=n_contrib, n_walked=img(walked))
 
 
 def tile_image(img: torch.Tensor, tile_ids: torch.Tensor, width: int,
                height: int, tile_x: int, tile_y: int) -> torch.Tensor:
-    """Image [(C,) H, W] -> per-tile pixels [T, (C,) P] of the given
-    tiles; pixels outside the image read 0."""
+    """Image [(C,) height, W] -> per-tile pixels [T, (C,) P] of the given
+    tiles; pixels outside the image read 0.  A strip's buffer is indexed
+    by its strip-local tile ids and rows (``height`` its rows)."""
     grid_x = (width + tile_x - 1) // tile_x
     px, py = tile_pixel_coords(tile_ids, grid_x, tile_x, tile_y)
     inside = (px < width) & (py < height)
@@ -282,7 +306,8 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
                    n_contrib: torch.Tensor, out_color: torch.Tensor,
                    final_t: torch.Tensor, d_color: torch.Tensor, width: int,
                    height: int, tile_x: int, tile_y: int,
-                   count_pairs: bool = False):
+                   count_pairs: bool = False, grid_y_local: int = 0,
+                   y0_px: int = 0):
     """Per-instance gradients [GRAD_ROWS, L] of the compositor (plain
     version of K3; saro_gs_tpu/ops/compositing.py:backward_tiles,
     backward.cu:399-557), given the forward's ``out_color`` [3,H,W],
@@ -291,7 +316,9 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     A tile is replayed up to its largest n_contrib; slots past that, and
     invalid slots outside every range, stay zero.  As in the reference
     the 0.99 alpha clamp is not gated.  ``width``/``height`` are the full
-    frame's (the NDC scaling of d_mean2d).
+    frame's (the NDC scaling of d_mean2d).  In strip mode
+    (``grid_y_local``, ``y0_px`` as in ``forward_tiles``) the image
+    tensors are the strip's buffers.
 
     With ``count_pairs`` returns (grad, n_pairs): the number of
     instance-pixel pairs that contributed, an int64 scalar tensor (the
@@ -299,16 +326,17 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     dev = attr.device
     f32 = torch.float32
     grid_x = (width + tile_x - 1) // tile_x
-    grid_y = (height + tile_y - 1) // tile_y
+    grid_y = grid_y_local or (height + tile_y - 1) // tile_y
+    rows = buffer_rows(height, tile_y, grid_y_local)
     tids = torch.arange(grid_x * grid_y, device=dev)
     nt = tids.shape[0]
     p = tile_x * tile_y
-    px, py = tile_pixel_coords(tids, grid_x, tile_x, tile_y)
+    px, py = tile_pixel_coords(tids, grid_x, tile_x, tile_y, y0_px)
     pxf, pyf = px.to(f32), py.to(f32)
     bg = bg.to(f32)
 
     def tiles(img):
-        return tile_image(img, tids, width, height, tile_x, tile_y)
+        return tile_image(img, tids, width, rows, tile_x, tile_y)
 
     # pixels outside the image have n_contrib 0 and replay nothing
     nc = tiles(n_contrib)                                    # [T,P] int32

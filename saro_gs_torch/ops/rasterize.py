@@ -27,8 +27,14 @@ preprocess, which autograd never sees:
   * ``mean2d_dummy`` receives the NDC screen-space gradients that
     densification reads, like the reference's retained screenspace points.
 
-Strip mode (``row0``/``strip_rows`` of the JAX package, for tile-axis
-sharding across chips) is not ported yet.
+Strip mode (``RasterConfig.strip_rows`` and ``row0``, for the tile-axis
+sharding of parallel/shard.py): the render covers ``strip_rows`` tile rows
+from global tile row ``row0``.  The preprocess is the full frame's; the
+rects are clipped to the strip and rebased (``_clip_to_strip``), the
+binning is strip-local, the outputs are the strip's
+``strip_rows * tile_y`` rows, uncropped, while pixel coordinates, the
+radii and the NDC scale of the screen-space gradients stay the full
+frame's.
 """
 from __future__ import annotations
 
@@ -55,12 +61,15 @@ class RasterConfig(NamedTuple):
     # False skips the n_contrib output (only the backward replay needs it);
     # such a render is forward-only
     need_aux: bool = True
+    # strip mode: render only this many tile rows, from the ``row0`` given
+    # to ``rasterize``; 0 renders the whole frame
+    strip_rows: int = 0
 
 
 class RenderOutput(NamedTuple):
-    color: torch.Tensor       # [3, H, W]
+    color: torch.Tensor       # [3, H, W] (a strip: [3, strip_rows*tile_y, W])
     depth: torch.Tensor       # [H, W]
-    radii: torch.Tensor       # [N] int32
+    radii: torch.Tensor       # [N] int32, the full frame's
     final_t: torch.Tensor     # [H, W]
     n_contrib: torch.Tensor   # [H, W] int32
     num_dropped: int          # instances beyond capacity
@@ -80,16 +89,33 @@ def _conic_to_cov2d_grads(a, b, c, ga, gb, gc):
     return d_a, d_b, d_c
 
 
+def _clip_to_strip(pre: projection.PreprocessOut, row0: int,
+                   rows_local: int) -> projection.PreprocessOut:
+    """A full-frame preprocess restricted to tile rows [row0, row0 +
+    rows_local), its rect rows rebased to the strip; a Gaussian with no
+    tile in the strip is masked out (saro_gs_tpu/ops/rasterize.py:93-106).
+    """
+    rmin_y = torch.clamp(pre.rmin_y - row0, 0, rows_local)
+    rmax_y = torch.clamp(pre.rmax_y - row0, 0, rows_local)
+    tiles = ((rmax_y - rmin_y) * (pre.rmax_x - pre.rmin_x)).to(torch.int32)
+    mask = pre.mask & (tiles > 0)
+    return pre._replace(rmin_y=rmin_y, rmax_y=rmax_y,
+                        tiles_touched=torch.where(mask, tiles,
+                                                  torch.zeros_like(tiles)),
+                        mask=mask)
+
+
 class _Rasterize(torch.autograd.Function):
     """forward(means3d, scales, quats, opacities, shs, colors_precomp,
     mean2d_dummy, cam, bg, active, statics, info) ->
-    (color, depth, radii, final_t, n_contrib); ``info`` (a dict) receives
-    num_dropped and num_instances."""
+    (color, depth, radii, final_t, n_contrib); statics = (width, height,
+    sh_degree, config, row0); ``info`` (a dict) receives num_dropped and
+    num_instances."""
 
     @staticmethod
     def forward(ctx, means3d, scales, quats, opacities, shs, colors_precomp,
                 mean2d_dummy, cam, bg, active, statics, info):
-        width, height, sh_degree, cfg = statics
+        width, height, sh_degree, cfg, row0 = statics
         pre = projection.preprocess(
             means3d, scales, quats, opacities, cam, width, height,
             cfg.tile_x, cfg.tile_y, sh_degree=sh_degree, shs=shs,
@@ -97,16 +123,22 @@ class _Rasterize(torch.autograd.Function):
             tight_rect=cfg.tight_rect)
         timing.mark("preprocess")
         grid_x = (width + cfg.tile_x - 1) // cfg.tile_x
-        grid_y = (height + cfg.tile_y - 1) // cfg.tile_y
+        if cfg.strip_rows > 0:
+            pre = _clip_to_strip(pre, row0, cfg.strip_rows)
+            grid_y = cfg.strip_rows
+        else:
+            grid_y = (height + cfg.tile_y - 1) // cfg.tile_y
         bins = binning.bin_gaussians_staged(
             pre, opacities.reshape(-1), grid_x, grid_y, cfg.max_instances,
-            cfg.tile_x, cfg.tile_y, corner_cull=cfg.tight_rect)
+            cfg.tile_x, cfg.tile_y, corner_cull=cfg.tight_rect,
+            y0_tiles=row0)
         timing.mark("binning")
         bg = bg.to(torch.float32).contiguous()
         fwd = tile_kernels.forward_tiles(
             bins.attr, bins.tile_start, bins.tile_count, bg, width, height,
             cfg.tile_x, cfg.tile_y, cfg.chunk, need_aux=cfg.need_aux,
-            tile_order=bins.tile_order)
+            tile_order=bins.tile_order, grid_y_local=cfg.strip_rows,
+            y0_tiles=row0)
         timing.mark("K1_forward")
         info["num_dropped"] = bins.num_dropped
         info["num_instances"] = bins.num_instances
@@ -126,7 +158,7 @@ class _Rasterize(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_color, *_):
-        width, height, sh_degree, cfg = ctx.statics
+        width, height, sh_degree, cfg, row0 = ctx.statics
         cam = ctx.cam
         (means3d, scales, quats, opacities, colour_in, mask, clamped, attr,
          tile_start, tile_count, perm, tiles, tile_order, color, final_t,
@@ -137,7 +169,8 @@ class _Rasterize(torch.autograd.Function):
         g9 = tile_kernels.backward_tiles(
             attr, tile_start, tile_count, ctx.bg, n_contrib, color, final_t,
             d_color.to(torch.float32).contiguous(), width, height,
-            cfg.tile_x, cfg.tile_y, tile_order=tile_order)        # [9, L]
+            cfg.tile_x, cfg.tile_y, tile_order=tile_order,
+            grid_y_local=cfg.strip_rows, y0_tiles=row0)           # [9, L]
         timing.mark("K3_backward")
         summed = binning.reduce_instances(g9, perm, tiles).to(dt)  # [N, 9]
 
@@ -222,14 +255,18 @@ def rasterize(means3d: torch.Tensor,
               shs: Optional[torch.Tensor] = None,
               colors_precomp: Optional[torch.Tensor] = None,
               mean2d_dummy: Optional[torch.Tensor] = None,
-              active: Optional[torch.Tensor] = None) -> RenderOutput:
+              active: Optional[torch.Tensor] = None,
+              row0: int = 0) -> RenderOutput:
     """Render N Gaussians to one image on their device.
 
     Differentiable in means3d, scales, quats, opacities and shs or
     colors_precomp; ``mean2d_dummy`` ([N, 2] zeros) receives the NDC
     screen-space gradients.  With ``config.need_aux=False`` the render is
     forward-only: call it under ``torch.no_grad()`` or on detached
-    tensors.  Strip mode (``row0``) is not ported yet."""
+    tensors.  With ``config.strip_rows`` > 0 it renders that many tile
+    rows from global tile row ``row0`` (module docstring)."""
+    if row0 and config.strip_rows <= 0:
+        raise ValueError(f"row0 {row0} needs RasterConfig.strip_rows > 0")
     diff = (means3d, scales, quats, opacities, shs, colors_precomp,
             mean2d_dummy)
     if torch.is_grad_enabled() and not config.need_aux and any(
@@ -242,7 +279,7 @@ def rasterize(means3d: torch.Tensor,
         mean2d_dummy = torch.zeros((means3d.shape[0], 2),
                                    dtype=torch.float32,
                                    device=means3d.device)
-    statics = (int(width), int(height), int(sh_degree), config)
+    statics = (int(width), int(height), int(sh_degree), config, int(row0))
     info = {}
     color, depth, radii, final_t, n_contrib = _Rasterize.apply(
         means3d, scales, quats, opacities, shs, colors_precomp,

@@ -22,6 +22,13 @@ version by a tolerance, fuses some of its gradient arithmetic by explicit
 ``fmaf``); ``--use_fast_math`` is not used, so ``expf`` is the accurate
 one.
 
+Strip mode (the tile-axis sharding of parallel/shard.py): K2, K1 and K3
+take ``y0_tiles``, the strip's first global tile row, with strip-local tile
+ids (the expander's corner cull, the compositors' pixel coordinates and
+warp boxes are global), and K1 and K3 take ``grid_y_local`` tile rows,
+whose buffers are the strip's ``grid_y_local * tile_y`` rows; the inside
+test and K3's NDC scale stay the full frame's.
+
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs (``torch.empty``; zeroed where the kernel leaves slots unwritten),
 launches on the current stream, raises if the launch failed, and counts
@@ -55,13 +62,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p, so ctypes passes them whole)
 _KERNELS = {
     "expand": ("expand.cu", "saro_expand_instances",
-               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                 _P, _P, _P, _P]),
     "forward": ("forward.cu", "saro_forward_tiles",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P, _P, _P, _P, _P, _P]),
     "backward": ("backward.cu", "saro_backward_tiles",
-                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                   _P, _P, _P, _P, _P, _P, _P]),
     "grid_scatter": ("grid_scatter.cu", "saro_scatter_mip_taps",
                      [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
@@ -181,14 +188,15 @@ def _stream() -> int:
 # K2: instance expansion (duplicateWithKeys, rasterizer_impl.cu:90-112)
 # ---------------------------------------------------------------------------
 
-def _corner_keep(tx, ty, a, tile_x: int, tile_y: int):
+def _corner_keep(tx, ty, a, tile_x: int, tile_y: int, y0_tiles: int = 0):
     """Corner cull (saro_gs_tpu/ops/binning.py:410-429): keep an instance
     unless its splat's largest alpha anywhere in the tile is < 1/255.
     power(q) <= -0.5 lam_min(C) |q|^2 with |q| >= dist(mean, tile rect).
-    Written in the kernel's order of operations."""
+    ``ty`` is strip-local, the tile's origin global.  Written in the
+    kernel's order of operations."""
     mx, my, ca, cb, cc, op = (a[i] for i in range(6))
     px0 = (tx * tile_x).to(torch.float32)
-    py0 = (ty * tile_y).to(torch.float32)
+    py0 = ((ty + y0_tiles) * tile_y).to(torch.float32)
     ddx = torch.clamp_min(torch.maximum(px0 - mx, mx - (px0 + tile_x - 1)),
                           0.0)
     ddy = torch.clamp_min(torch.maximum(py0 - my, my - (py0 + tile_y - 1)),
@@ -215,7 +223,8 @@ def run_owners(offsets, tiles, n_inst: int):
 
 def expand_instances_plain(offsets, tiles, rect, gattr, n_inst: int,
                            grid_x: int, grid_y: int, tile_x: int,
-                           tile_y: int, corner_cull: bool):
+                           tile_y: int, corner_cull: bool,
+                           y0_tiles: int = 0):
     """Plain version of K2; see ``expand_instances``."""
     dev = offsets.device
     g = run_owners(offsets, tiles, n_inst)
@@ -226,7 +235,7 @@ def expand_instances_plain(offsets, tiles, rect, gattr, n_inst: int,
     ty = rmin_y + local // rw
     a = gattr.index_select(1, g)
     if corner_cull:
-        valid = _corner_keep(tx, ty, a, tile_x, tile_y)
+        valid = _corner_keep(tx, ty, a, tile_x, tile_y, y0_tiles)
     else:
         valid = torch.ones(n_inst, dtype=torch.bool, device=dev)
     tile = (ty * grid_x + tx).long()
@@ -242,7 +251,7 @@ def expand_instances_plain(offsets, tiles, rect, gattr, n_inst: int,
 def expand_instances(offsets: torch.Tensor, tiles: torch.Tensor,
                      rect: torch.Tensor, gattr: torch.Tensor, n_inst: int,
                      grid_x: int, grid_y: int, tile_x: int, tile_y: int,
-                     corner_cull: bool):
+                     corner_cull: bool, y0_tiles: int = 0):
     """K2: spread each Gaussian's attributes to its instance slots.
 
     offsets, tiles: [N] int32, the exclusive cumsum of tiles_touched and
@@ -253,7 +262,9 @@ def expand_instances(offsets: torch.Tensor, tiles: torch.Tensor,
     offsets[g] <= s < offsets[g] + tiles[g] and covers tile
     (rmin_x + l % rw, rmin_y + l // rw), l = s - offsets[g], rw the rect
     width.  With ``corner_cull`` an instance whose alpha is < 1/255 all
-    over its tile is invalid.  One thread per slot, which finds its owner
+    over its tile is invalid; in strip mode the rect rows are
+    strip-local and the tile's pixels start at global tile row
+    ``y0_tiles`` + its row.  One thread per slot, which finds its owner
     by binary search over offsets.
 
     Returns keys [n_inst] int64 (tile << 32 | depth bits; the sentinel
@@ -263,7 +274,7 @@ def expand_instances(offsets: torch.Tensor, tiles: torch.Tensor,
     if offsets.device.type == "cpu":
         return expand_instances_plain(offsets, tiles, rect, gattr, n_inst,
                                       grid_x, grid_y, tile_x, tile_y,
-                                      corner_cull)
+                                      corner_cull, y0_tiles)
     dev = offsets.device
     if dev.type != "cuda":
         raise ValueError(f"expand_instances: unsupported device {dev}")
@@ -282,7 +293,7 @@ def expand_instances(offsets: torch.Tensor, tiles: torch.Tensor,
     fn = _fn("expand")
     err = fn(offsets.data_ptr(), tiles.data_ptr(), rect.data_ptr(),
              gattr.data_ptr(), n, n_inst, grid_x, grid_y, tile_x, tile_y,
-             int(corner_cull), keys.data_ptr(), gid.data_ptr(),
+             y0_tiles, int(corner_cull), keys.data_ptr(), gid.data_ptr(),
              attr.data_ptr(), _stream())
     _launched("expand", err)
     return keys, gid, attr
@@ -311,8 +322,9 @@ def forward_band_rows(tile_x: int, tile_y: int) -> int:
 def forward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
                   tile_count: torch.Tensor, bg: torch.Tensor, width: int,
                   height: int, tile_x: int, tile_y: int, chunk: int,
-                  need_aux: bool = True,
-                  tile_order=None) -> compositing.ForwardTilesOut:
+                  need_aux: bool = True, tile_order=None,
+                  grid_y_local: int = 0,
+                  y0_tiles: int = 0) -> compositing.ForwardTilesOut:
     """K1: front-to-back compositing of every tile's
     [tile_start, tile_start + tile_count) range of the staged table
     ``attr`` [10, L] (binning.StagedBins).  A tile is split into bands of
@@ -320,17 +332,21 @@ def forward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     ``tile_order`` ([NT] int32, default ``heaviest_first(tile_count)``);
     each warp culls the instances that cannot reach its 8x4-pixel patch
     and stops once its pixels are done.  Instances are staged ``chunk`` at
-    a time, which changes no output.
+    a time, which changes no output.  Strip mode: ``grid_y_local`` tile
+    rows from global tile row ``y0_tiles`` (module docstring).
     Plain version: compositing.forward_tiles."""
     if attr.device.type == "cpu":
         return compositing.forward_tiles(attr, tile_start, tile_count, bg,
                                          width, height, tile_x, tile_y,
-                                         need_aux=need_aux)
+                                         need_aux=need_aux,
+                                         grid_y_local=grid_y_local,
+                                         y0_px=y0_tiles * tile_y)
     dev = attr.device
     if dev.type != "cuda":
         raise ValueError(f"forward_tiles: unsupported device {dev}")
     grid_x = (width + tile_x - 1) // tile_x
-    grid_y = (height + tile_y - 1) // tile_y
+    grid_y = grid_y_local or (height + tile_y - 1) // tile_y
+    rows = compositing.buffer_rows(height, tile_y, grid_y_local)
     nt = grid_x * grid_y
     if forward_band_rows(tile_x, tile_y) == 0:
         raise ValueError(f"tile {tile_x}x{tile_y}: a row of it does not fit "
@@ -341,14 +357,14 @@ def forward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     _check(tile_start, "tile_start", torch.int32, (nt,), dev)
     _check(tile_count, "tile_count", torch.int32, (nt,), dev)
     _check(bg, "bg", torch.float32, (3,), dev)
-    color = torch.empty((3, height, width), dtype=torch.float32, device=dev)
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    final_t = torch.empty((height, width), dtype=torch.float32, device=dev)
+    color = torch.empty((3, rows, width), dtype=torch.float32, device=dev)
+    depth = torch.empty((rows, width), dtype=torch.float32, device=dev)
+    final_t = torch.empty((rows, width), dtype=torch.float32, device=dev)
     if need_aux:
-        n_contrib = torch.empty((height, width), dtype=torch.int32,
+        n_contrib = torch.empty((rows, width), dtype=torch.int32,
                                 device=dev)
     else:
-        n_contrib = torch.zeros((height, width), dtype=torch.int32,
+        n_contrib = torch.zeros((rows, width), dtype=torch.int32,
                                 device=dev)
     if tile_order is None:
         tile_order = heaviest_first(tile_count)
@@ -356,7 +372,8 @@ def forward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     fn = _fn("forward")
     err = fn(tile_order.data_ptr(), tile_start.data_ptr(),
              tile_count.data_ptr(), attr.data_ptr(), attr.shape[1], width,
-             height, grid_x, grid_y, tile_x, tile_y, chunk, bg.data_ptr(),
+             height, grid_x, grid_y, tile_x, tile_y, y0_tiles * tile_y, rows,
+             chunk, bg.data_ptr(),
              color.data_ptr(), depth.data_ptr(), final_t.data_ptr(),
              n_contrib.data_ptr() if need_aux else None, _stream())
     _launched("forward", err)
@@ -372,8 +389,8 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
                    tile_count: torch.Tensor, bg: torch.Tensor,
                    n_contrib: torch.Tensor, out_color: torch.Tensor,
                    final_t: torch.Tensor, d_color: torch.Tensor, width: int,
-                   height: int, tile_x: int, tile_y: int,
-                   tile_order=None) -> torch.Tensor:
+                   height: int, tile_x: int, tile_y: int, tile_order=None,
+                   grid_y_local: int = 0, y0_tiles: int = 0) -> torch.Tensor:
     """K3: per-instance gradients [9, L] of the compositor on the staged
     table ``attr`` [10, L], from the forward's ``out_color`` [3,H,W],
     ``final_t`` and ``n_contrib`` [H,W] and the colour cotangent
@@ -383,18 +400,22 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     ``tile_order`` (as K1; default ``heaviest_first(tile_count)``), each
     replaying up to its tile's largest n_contrib; a front-to-back replay
     in batches of BACKWARD_CHUNK instances; slots never visited are zero;
-    no atomics, so two launches agree to the bit.
+    no atomics, so two launches agree to the bit.  Strip mode as K1's
+    (``grid_y_local``, ``y0_tiles``): the image tensors are the strip's
+    buffers, while ``width``/``height`` stay the full frame's.
     Plain version: compositing.backward_tiles."""
     if attr.device.type == "cpu":
         return compositing.backward_tiles(attr, tile_start, tile_count, bg,
                                           n_contrib, out_color, final_t,
                                           d_color, width, height, tile_x,
-                                          tile_y)
+                                          tile_y, grid_y_local=grid_y_local,
+                                          y0_px=y0_tiles * tile_y)
     dev = attr.device
     if dev.type != "cuda":
         raise ValueError(f"backward_tiles: unsupported device {dev}")
     grid_x = (width + tile_x - 1) // tile_x
-    grid_y = (height + tile_y - 1) // tile_y
+    grid_y = grid_y_local or (height + tile_y - 1) // tile_y
+    rows = compositing.buffer_rows(height, tile_y, grid_y_local)
     nt = grid_x * grid_y
     if tile_y < BACKWARD_SPLIT or tile_x * -(-tile_y // BACKWARD_SPLIT) > 256:
         raise ValueError(f"tile {tile_x}x{tile_y}: the kernel takes at "
@@ -405,10 +426,10 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     _check(tile_start, "tile_start", torch.int32, (nt,), dev)
     _check(tile_count, "tile_count", torch.int32, (nt,), dev)
     _check(bg, "bg", torch.float32, (3,), dev)
-    _check(n_contrib, "n_contrib", torch.int32, (height, width), dev)
-    _check(out_color, "out_color", torch.float32, (3, height, width), dev)
-    _check(final_t, "final_t", torch.float32, (height, width), dev)
-    _check(d_color, "d_color", torch.float32, (3, height, width), dev)
+    _check(n_contrib, "n_contrib", torch.int32, (rows, width), dev)
+    _check(out_color, "out_color", torch.float32, (3, rows, width), dev)
+    _check(final_t, "final_t", torch.float32, (rows, width), dev)
+    _check(d_color, "d_color", torch.float32, (3, rows, width), dev)
     grad = torch.zeros((compositing.GRAD_ROWS, n_slots),
                        dtype=torch.float32, device=dev)
     if tile_order is None:
@@ -416,13 +437,13 @@ def backward_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
     _check(tile_order, "tile_order", torch.int32, (nt,), dev)
     # each tile's replay bound
     padded = torch.nn.functional.pad(
-        n_contrib, (0, grid_x * tile_x - width, 0, grid_y * tile_y - height))
+        n_contrib, (0, grid_x * tile_x - width, 0, grid_y * tile_y - rows))
     bound = torch.minimum(padded.reshape(grid_y, tile_y, grid_x, tile_x)
                           .amax(dim=(1, 3)).reshape(-1), tile_count)
     fn = _fn("backward")
     err = fn(tile_order.data_ptr(), bound.data_ptr(), tile_start.data_ptr(),
              attr.data_ptr(), n_slots, width, height, grid_x, grid_y, tile_x,
-             tile_y, BACKWARD_CHUNK, bg.data_ptr(),
+             tile_y, y0_tiles * tile_y, rows, BACKWARD_CHUNK, bg.data_ptr(),
              n_contrib.data_ptr(), out_color.data_ptr(), final_t.data_ptr(),
              d_color.data_ptr(), grad.data_ptr(), _stream())
     _launched("backward", err)

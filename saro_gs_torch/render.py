@@ -37,14 +37,16 @@ def train_render(cam: CameraParams, timestamp,
                  rcfg: RasterConfig,
                  mean2d_dummy: Optional[torch.Tensor] = None,
                  feat: Optional[torch.Tensor] = None,
-                 sh_mask: Optional[torch.Tensor] = None) -> RenderPackage:
+                 sh_mask: Optional[torch.Tensor] = None,
+                 row0: int = 0) -> RenderPackage:
     """Training render of one view (renderer/__init__.py:35-138).
 
     ``stage`` "dynamatic" deforms the points at ``timestamp`` (``feat``:
     the field features, sampled once per step and shared by the views);
     any other stage renders the canonical activations.  ``sh_mask``
     ([16, 1] float) zeroes the SH coefficients above the active degree:
-    the same colours and gradients as the degree-truncated sum."""
+    the same colours and gradients as the degree-truncated sum.  ``row0``:
+    the strip's first tile row, with ``rcfg.strip_rows`` (strip mode)."""
     def msk(shs):
         return shs if sh_mask is None else shs * sh_mask
     if stage == "dynamatic":
@@ -54,14 +56,14 @@ def train_render(cam: CameraParams, timestamp,
         out = rasterize(d.xyz, d.scaling, d.rotation, d.opacity.reshape(-1),
                         cam, bg, width=width, height=height,
                         sh_degree=sh_degree, config=rcfg, shs=msk(d.shs),
-                        mean2d_dummy=mean2d_dummy, active=alive)
+                        mean2d_dummy=mean2d_dummy, active=alive, row0=row0)
         return RenderPackage(out=out, deform=d)
     out = rasterize(params.xyz, gm.get_scaling(params),
                     gm.get_rotation(params),
                     gm.get_opacity(params).reshape(-1), cam, bg,
                     width=width, height=height, sh_degree=sh_degree,
                     config=rcfg, shs=msk(gm.get_features(params)),
-                    mean2d_dummy=mean2d_dummy, active=alive)
+                    mean2d_dummy=mean2d_dummy, active=alive, row0=row0)
     return RenderPackage(out=out, deform=None)
 
 
@@ -73,11 +75,12 @@ def test_render(cam: CameraParams, timestamp,
                 width: int, height: int, sh_degree: int,
                 rcfg: RasterConfig,
                 feat: Optional[torch.Tensor] = None,
-                require_segment: bool = False):
+                require_segment: bool = False, row0: int = 0):
     """Eval-path render at ``timestamp``; ``feat`` is the field feature
     tensor cached per checkpoint (gm.field_feat).  Returns
     (RenderOutput, segment RenderOutput or None); the segment render
-    shows each Gaussian's lifespan as its colour."""
+    shows each Gaussian's lifespan as its colour.  ``row0`` as in
+    ``train_render``."""
     d = gm.deform(params, nets, mcfg, fstatic, timestamp, feat=feat)
     active = alive * (d.state[:, 0] > EVAL_STATE_CUTOFF)
     # forward-only render: skip n_contrib
@@ -85,12 +88,13 @@ def test_render(cam: CameraParams, timestamp,
     out = rasterize(d.xyz, d.scaling, d.rotation, d.opacity.reshape(-1),
                     cam, bg, width=width, height=height,
                     sh_degree=sh_degree, config=rcfg, shs=d.shs,
-                    active=active)
+                    active=active, row0=row0)
     seg: Optional[RenderOutput] = None
     if require_segment:
         lifespan_rgb = d.lifespan.expand(-1, 3)
         seg = rasterize(d.xyz, d.scaling, d.rotation,
                         d.opacity.reshape(-1), cam, bg, width=width,
                         height=height, sh_degree=sh_degree, config=rcfg,
-                        colors_precomp=lifespan_rgb, active=active)
+                        colors_precomp=lifespan_rgb, active=active,
+                        row0=row0)
     return out, seg

@@ -27,6 +27,7 @@ from .data.pointcloud import preprocess_points
 from .data.readers import SCENE_READERS, SceneInfo
 from .models import field as field_mod
 from .models import gaussians as gm
+from .parallel import runtime
 
 
 def _next_pow2(n: int) -> int:
@@ -73,13 +74,16 @@ class Scene:
     """The dataset, the model state on ``device`` and the checkpoints of
     one run.  ``generator`` (a CPU ``torch.Generator`` seeded from
     ``cfg.seed``) makes the new model's draws; the trainer goes on
-    drawing from it."""
+    drawing from it.  In a process group every rank builds the same
+    scene, and only rank 0 writes under ``model_path`` (``writes``):
+    cameras.json, exp_log.txt and the checkpoints."""
 
     def __init__(self, cfg, load_iteration: Optional[str] = None,
                  device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model_path = cfg.model_path
+        self.writes = runtime.group_rank() == 0
         self.mcfg = cfg.model_config()
 
         reader = SCENE_READERS[cfg.loader]
@@ -116,7 +120,7 @@ class Scene:
         capacity = max(cfg.capacity, _next_pow2(pcd.points.shape[0]))
         self.params, self.alive = gm.create_from_pcd(
             pcd, capacity, self.mcfg, self.generator, self.device)
-        if cfg.model_path:
+        if cfg.model_path and self.writes:
             os.makedirs(cfg.model_path, exist_ok=True)
             cams = list(self.info.test_cameras) + \
                 list(self.info.train_cameras)
@@ -127,10 +131,19 @@ class Scene:
 
     # ---- cameras (scene/__init__.py:139-163) -------------------------------
     def train_loader(self, batch_size: int, num_workers: int = 4,
-                     seed: int = 666) -> BatchLoader:
+                     seed: int = 666, process_index: int = 0,
+                     process_count: int = 1) -> BatchLoader:
+        """Batches of ``batch_size`` views; on a mesh, data rank
+        ``process_index`` of ``process_count`` gets its share of each
+        (BatchLoader's ``shard``).  Unlike the JAX package's per-host
+        camera shards with seeds of their own, every rank draws the
+        batches one process draws, so a run on a mesh trains on the same
+        views as one on a single process; tile peers (same data index)
+        get the same share."""
         return BatchLoader(self.info.train_cameras, batch_size,
                            white_background=self.cfg.white_background,
-                           num_workers=num_workers, seed=seed)
+                           num_workers=num_workers, seed=seed,
+                           shard=(process_index, process_count))
 
     def test_cameras(self) -> List[Camera]:
         return self.info.test_cameras
@@ -141,8 +154,11 @@ class Scene:
     # ---- checkpoints --------------------------------------------------------
     def save(self, iteration, params: gm.GaussianParams,
              nets: gm.DeformNets, alive: torch.Tensor,
-             best_ckpt: bool = False) -> str:
-        """The live rows and the nets -> point_cloud/iteration_<tag>/."""
+             best_ckpt: bool = False) -> Optional[str]:
+        """The live rows and the nets -> point_cloud/iteration_<tag>/;
+        the PLY's path, or None on a rank that does not write."""
+        if not self.writes:
+            return None
         tag = "best" if best_ckpt else str(iteration)
         out_dir = os.path.join(self.model_path, "point_cloud",
                                f"iteration_{tag}")
@@ -176,7 +192,7 @@ class Scene:
 
     def record_points(self, iteration, note: str, n_points: int):
         """exp_log.txt journal (helper_train.recordpointshelper:189-194)."""
-        if not self.model_path:
+        if not (self.model_path and self.writes):
             return
         with open(os.path.join(self.model_path, "exp_log.txt"), "a") as f:
             f.write(f"iteration at {iteration}\n")

@@ -17,8 +17,14 @@ Adam update and the non-finite guard.  What it keeps from the JAX package:
 The parameter leaves, in the order every flat list here uses, are the
 seven ``GaussianParams`` fields and then ``DeformNets.leaves()``.  The
 nets are an ``nn.Module`` and are updated in place; everything else of the
-state is replaced, not mutated.  The mesh branches of the JAX package
-(``axis_name``, ``axis_tile``) are not ported yet.
+state is replaced, not mutated.
+
+On a mesh of ranks (``mesh``, parallel/runtime.py; the JAX package's
+``axis_name`` and ``axis_tile`` inside shard_map) each rank takes its own
+views (the data axis) and renders its strip of every view's tile rows
+(the tile axis); the gradients and statistics are reduced across the
+tile group, then the data group, before the guard and the update, so
+every rank makes the same decisions and the same update.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 
 from .. import timing
 from ..models import densify as dens
+from ..parallel import comm
 from ..models import field as field_mod
 from ..models import gaussians as gm
 from ..ops.projection import CameraParams
@@ -114,19 +121,38 @@ def _masked_std(x, mask):
 
 def batch_loss_fn(points: gm.GaussianParams, nets: gm.DeformNets, *, cams,
                   gt, timestamps, alive, bg, fstatic, st: StepStatics,
-                  stage: str, sh_degree: int, sh_mask=None):
-    """Mean loss over the view batch and its gradients.
+                  stage: str, sh_degree: int, sh_mask=None, mesh=None):
+    """Mean loss over the (local) view batch and its gradients.
 
     ``cams`` is a CameraParams whose leaves carry a leading batch axis.
     Returns (loss, (radii [B, C], ll1, dropped, last image), grads) with
     grads = (g_leaves in ``param_leaves`` order, g_m2d [B, C, 2]): the
     gradient of the mean loss, and of the mean loss with respect to each
-    view's ``mean2d_dummy``."""
+    view's ``mean2d_dummy``.
+
+    With a tile axis (``mesh.n_tile`` > 1) the rank renders its strip of
+    ceil(grid_y / n_tile) tile rows, the strips are gathered into the
+    full frame (comm.gather_rows) and every rank computes the same
+    full-frame loss, differentiated at 1/n_tile: the gather's backward
+    sums the ranks' image cotangents and hands each rank its strip's, so
+    the tile group's sum of the gradients (``train_step_core``) is the
+    full frame's gradient, the regularizers included.  Where n_tile
+    divides the capacity, each rank samples the field features of its
+    C/n_tile points and the features are gathered likewise.  The
+    reported loss is the full frame's, unscaled."""
     mcfg, rcfg, weights = st.mcfg, st.rcfg, st.weights
     alive_col = alive[:, None]
     batch = gt.shape[0]
     cap = alive.shape[0]
     dynamic = stage == "dynamatic"
+    tiled = mesh is not None and mesh.n_tile > 1
+    row0, loss_scale = 0, 1.0
+    if tiled:
+        grid_y = -(-st.height // rcfg.tile_y)
+        rows_local = -(-grid_y // mesh.n_tile)
+        rcfg = rcfg._replace(strip_rows=rows_local)
+        row0 = mesh.tile_rank * rows_local
+        loss_scale = 1.0 / mesh.n_tile
 
     pts = gm.GaussianParams(*[p.detach().requires_grad_() for p in points])
     net_leaves = nets.leaves()
@@ -135,7 +161,15 @@ def batch_loss_fn(points: gm.GaussianParams, nets: gm.DeformNets, *, cams,
     # the field features do not depend on the view's timestamp
     # (saro_gaussian.py:780): sample once, share across the batch
     feat_graph = feat = None
-    if dynamic:
+    point_shard = tiled and dynamic and cap % mesh.n_tile == 0
+    if point_shard:
+        per = cap // mesh.n_tile
+        rows = slice(mesh.tile_rank * per, (mesh.tile_rank + 1) * per)
+        feat_graph = gm.field_feat(gm.GaussianParams(*[p[rows] for p in pts]),
+                                   nets, mcfg, fstatic)
+        feat = comm.gather_rows(feat_graph.detach(), mesh.tile_group,
+                                mesh.tile_rank, mesh.n_tile).requires_grad_()
+    elif dynamic:
         feat_graph = gm.field_feat(pts, nets, mcfg, fstatic)
         feat = feat_graph.detach().requires_grad_()
     timing.mark("field_features")
@@ -154,8 +188,11 @@ def batch_loss_fn(points: gm.GaussianParams, nets: gm.DeformNets, *, cams,
             cam, timestamps[i], pts, nets, alive, mcfg, fstatic, bg,
             width=st.width, height=st.height, stage=stage,
             sh_degree=sh_degree, rcfg=rcfg, mean2d_dummy=m2d, feat=feat,
-            sh_mask=sh_mask)
+            sh_mask=sh_mask, row0=row0)
         color = pkg.out.color
+        if tiled:
+            color = comm.gather_rows(color, mesh.tile_group, mesh.tile_rank,
+                                     mesh.n_tile, dim=1)[:, :st.height]
         d = pkg.deform
         loss, logs = losses.composite_loss(
             weights, color, gt[i],
@@ -176,8 +213,8 @@ def batch_loss_fn(points: gm.GaussianParams, nets: gm.DeformNets, *, cams,
         timing.mark("loss")
         # this view's share of the mean loss, differentiated now so its
         # graph is freed before the next view is rendered
-        grads = torch.autograd.grad(loss / batch, inputs + [m2d],
-                                    allow_unused=True)
+        grads = torch.autograd.grad(loss * (loss_scale / batch),
+                                    inputs + [m2d], allow_unused=True)
         timing.mark("deform_backward")
         for k, g in enumerate(grads[:-1]):
             if g is not None:
@@ -190,10 +227,16 @@ def batch_loss_fn(points: gm.GaussianParams, nets: gm.DeformNets, *, cams,
         dropped = max(dropped, pkg.out.num_dropped)
         color = color.detach()
 
-    if dynamic and acc[-1] is not None:
+    g_feat = acc[-1] if dynamic else None
+    if point_shard:
+        # the features' gather transposed: this rank's rows of the sum
+        g_feat = comm.sum_rows(
+            torch.zeros_like(feat) if g_feat is None else g_feat,
+            mesh.tile_group, mesh.tile_rank, mesh.n_tile)
+    if g_feat is not None:
         # the views' feature gradient through the field, once
         g_planes = torch.autograd.grad(feat_graph, net_leaves[:n_planes],
-                                       acc[-1], allow_unused=True)
+                                       g_feat, allow_unused=True)
         for k, g in enumerate(g_planes):
             j = len(pts) + k
             if g is not None:
@@ -237,12 +280,21 @@ def lr_trees(step: int, inv_integral, points: gm.GaussianParams,
 
 def train_step_core(state: TrainState, cams, gt, timestamps, bg, fstatic,
                     st: StepStatics, *, stage: str, sh_degree: int,
-                    scale_integral: bool, sh_mask=None):
+                    scale_integral: bool, sh_mask=None, mesh=None):
     """One optimization step -> (new state, metrics).
 
     ``gt`` [B, 3, H, W] is float32 in [0, 1] or uint8 (decoded here, so the
     host sends a quarter of the bytes).  The metrics are python numbers:
-    the guard reads them, with its flags, in one transfer from the card."""
+    the guard reads them, with its flags, in one transfer from the card.
+
+    On a ``mesh`` (parallel/runtime.Mesh; ``cams``, ``gt`` and
+    ``timestamps`` the rank's own views): over the tile group the SUM of
+    the gradients and the screen-space gradients and the MAX of the
+    dropped instances; then over the data group the mean of the
+    gradients, the loss and Ll1, the SUM of the visibility counts and the
+    screen-gradient norms, the MAX of the radii and the dropped
+    instances.  The norms are scaled by the local batch, as the JAX
+    package's are inside shard_map; ``psnr`` is the rank's last view's."""
     if gt.dtype == torch.uint8:
         gt = gt.to(torch.float32) * (1.0 / 255.0)
     batch = gt.shape[0]
@@ -251,9 +303,16 @@ def train_step_core(state: TrainState, cams, gt, timestamps, bg, fstatic,
         batch_loss_fn(state.points, state.nets, cams=cams, gt=gt,
                       timestamps=timestamps, alive=state.alive, bg=bg,
                       fstatic=fstatic, st=st, stage=stage,
-                      sh_degree=sh_degree, sh_mask=sh_mask)
+                      sh_degree=sh_degree, sh_mask=sh_mask, mesh=mesh)
 
     with torch.no_grad():
+        if mesh is not None:
+            # the strips' partial sums of every per-Gaussian gradient
+            *g_leaves, g_m2d = comm.all_reduce(g_leaves + [g_m2d], "sum",
+                                               mesh.tile_group)
+            dropped_t, = comm.all_reduce(
+                [torch.tensor([dropped], device=g_m2d.device)], "max",
+                mesh.tile_group)
         # densify statistics (train.py:278-292).  The reference accumulates
         # the screen-gradient norm of each view's own loss; the batch loss
         # is the mean over views, so undo the 1/B on the dummy gradients
@@ -262,6 +321,20 @@ def train_step_core(state: TrainState, cams, gt, timestamps, bg, fstatic,
         vis_count = vis.sum(dim=0)
         summed = norms.sum(dim=0)
         max_radii = radii.max(dim=0).values
+        if mesh is not None and mesh.data_group is not None:
+            # the batch's mean over the data group's views (counts travel
+            # as float32: exact below 2**24)
+            *g_leaves, summed, vis_f, loss, ll1 = comm.all_reduce(
+                g_leaves + [summed, vis_count.to(torch.float32), loss, ll1],
+                "sum", mesh.data_group)
+            g_leaves = [g / mesh.n_data for g in g_leaves]
+            loss, ll1 = loss / mesh.n_data, ll1 / mesh.n_data
+            vis_count = vis_f.to(vis_count.dtype)
+            max_radii, dropped_t = comm.all_reduce(
+                [max_radii, dropped_t.to(max_radii.dtype)], "max",
+                mesh.data_group)
+        if mesh is not None:
+            dropped = int(dropped_t)
         seen = vis_count > 0
         batch_grad = torch.where(seen, summed / torch.clamp_min(vis_count, 1),
                                  torch.zeros_like(summed))
@@ -325,7 +398,7 @@ def train_step_core(state: TrainState, cams, gt, timestamps, bg, fstatic,
         # the health counters move on skipped steps too
         new_state = new_state._replace(
             step=state.step + 1,
-            dropped_hwm=max(state.dropped_hwm, int(dropped)),
+            dropped_hwm=max(state.dropped_hwm, dropped),
             bad_steps=state.bad_steps + (0 if finite else 1))
     timing.mark("adam_guard")
 

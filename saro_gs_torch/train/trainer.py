@@ -14,11 +14,19 @@ capacity doubles and the pass runs again.
 The split draws come from the scene's generator, on the CPU, so a run
 draws the same numbers on every device.
 
-Not ported, because they exist only for XLA or the TPU: the tile
-divisibility check, the background precompile of the dynamic step, the
-device-scalar caches of the SH mask and flags, and the multi-host batch
-globalisation.  The multi-process branches wait for the port's parallel
-module, and wandb logging is left out.
+With ``mesh_data * mesh_tile`` > 1 the run is one rank of a process group
+(parallel/runtime.py; launched by torchrun): each rank holds the whole
+state, takes its data index's share of every batch, renders its strip of
+tile rows, and the step's collectives give every rank the same update.
+The host-side control then runs alike on every rank (same state, same
+generator seed).  Only rank 0 evaluates and writes into ``model_path``
+(checkpoints, history.json, exp_log.txt, the eval report; the JAX
+package writes from every process), and the other ranks wait at a
+barrier after each eval.
+
+Not ported, because they exist only for XLA or the TPU: the background
+precompile of the dynamic step and the device-scalar caches of the SH
+mask and flags; wandb logging is left out.
 """
 from __future__ import annotations
 
@@ -29,10 +37,12 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models import densify as dens
 from ..models import gaussians as gm
 from ..ops.projection import CameraParams
+from ..parallel import runtime
 from ..render import train_render
 from . import optim, step
 
@@ -89,8 +99,23 @@ class Trainer:
         # instance-capacity doubling
         self.densify_log = []
         self.overflows = []
+        # this rank's place on the (data, tile) mesh; None for one process
+        self.mesh = (runtime.make_mesh(cfg.mesh_data, cfg.mesh_tile)
+                     if cfg.mesh_data * cfg.mesh_tile > 1 else None)
+        self._check_tile_divisibility()
         if cfg.presize_instances and scene.info.train_cameras:
             self._presize_instances()
+
+    def _check_tile_divisibility(self):
+        """The field features are sampled point-sharded over the tile axis
+        only when it divides the capacity (step.batch_loss_fn), else on
+        every rank whole; say so, since the capacity is chosen here."""
+        n_tile = self.cfg.mesh_tile
+        cap = self.state.alive.shape[0]
+        if n_tile > 1 and cap % n_tile != 0:
+            print(f"[warn] capacity {cap} not divisible by mesh_tile "
+                  f"{n_tile}: the field features are sampled whole on "
+                  "every rank")
 
     def _presize_instances(self):
         """Size the instance capacity from one probe frame (as the eval
@@ -217,17 +242,19 @@ class Trainer:
     def _to_device(self, batch):
         def t(x):
             return torch.as_tensor(x).to(self.device, non_blocking=True)
-        return (CameraParams(*[t(x) for x in batch.cams]), t(batch.gt),
-                t(batch.timestamps))
+        return runtime.make_global_batch(
+            (CameraParams(*[t(x) for x in batch.cams]), t(batch.gt),
+             t(batch.timestamps)))
 
     # ---- the loop -----------------------------------------------------------
     def run(self, max_iterations: Optional[int] = None,
             log_every: int = 50, eval_fn=None):
         cfg = self.cfg
         total = max_iterations or cfg.iterations
-        loader = self.scene.train_loader(cfg.batch,
-                                         num_workers=cfg.data_workers,
-                                         seed=cfg.seed)
+        loader = self.scene.train_loader(
+            cfg.batch, num_workers=cfg.data_workers, seed=cfg.seed,
+            process_index=self.mesh.data_rank if self.mesh else 0,
+            process_count=cfg.mesh_data)
         it = self.state.step
         bad_seen = self.state.bad_steps
         prof = None
@@ -248,7 +275,8 @@ class Trainer:
                     self.state, cams, gt, ts, self.bg, self.scene.fstatic,
                     self._statics(), stage=stage, sh_degree=cfg.sh_degree,
                     scale_integral=scale_int,
-                    sh_mask=self._sh_mask(self.active_sh_degree))
+                    sh_mask=self._sh_mask(self.active_sh_degree),
+                    mesh=self.mesh)
 
                 if prof is not None and it == cfg.profile_iters[1]:
                     self._stop_profile(prof)
@@ -279,7 +307,10 @@ class Trainer:
                     bad_seen = self._log(it, total, stage, metrics, t_start,
                                          bad_seen, log_every)
                 if eval_fn is not None and it in set(cfg.testing_iterations):
-                    eval_fn(self, it)
+                    if self.scene.writes:
+                        eval_fn(self, it)
+                    if self.mesh is not None:
+                        dist.barrier()
                 if it in set(cfg.save_iterations):
                     self.scene.save(it, self.state.points, self.state.nets,
                                     self.state.alive)
@@ -311,6 +342,8 @@ class Trainer:
                   f"skipped since it {it - log_every}"
                   + (f" (this step: {rec['bad_src']})" if src else ""))
         self.history.append(rec)
+        if not self.scene.writes:
+            return bad_total
         print(f"[{it}/{total}] loss={rec['loss']:.5f} psnr={rec['psnr']:.2f} "
               f"pts={rec['points']} ({rec['elapsed_s']:.0f}s)", flush=True)
         # a killed run still leaves its trajectory on disk

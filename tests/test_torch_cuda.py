@@ -388,6 +388,68 @@ def test_backward_kernel_heavy_tile(dev):
     assert not k[:, (p == 0).all(0)].any()
 
 
+@pytest.mark.parametrize("tile,n_strip", [(16, 3), (32, 2)])
+def test_strip_kernels_match_plain(dev, tile, n_strip):
+    """Strip mode, every strip of a frame whose last tile row is partial:
+    K2 (corner cull at the strip's tile-row offset) and K1 equal to the
+    bit to their plain versions, K3 within its 1e-5 row-max and L2 gates,
+    and the strips' colour, depth, final T and n_contrib equal to the
+    full frame's."""
+    from saro_gs_torch.ops.rasterize import _clip_to_strip
+    pre0, o, w, h = _pre(dev, tile, True, height=150)
+    gx, gy = -(-w // tile), -(-h // tile)
+    rows = -(-gy // n_strip)
+    bg = torch.tensor([0.2, 0.5, 1.0], device=dev)
+    bins0 = binning.bin_gaussians_staged(pre0, o, gx, gy, 1 << 20, tile,
+                                         tile)
+    full = tile_kernels.forward_tiles(bins0.attr, bins0.tile_start,
+                                      bins0.tile_count, bg, w, h, tile, tile,
+                                      128)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    strips = []
+    for s in range(n_strip):
+        row0 = s * rows
+        pre = _clip_to_strip(pre0, row0, rows)
+        offsets, tiles, rect, gattr, total = binning.expand_inputs(pre, o)
+        exp = (offsets, tiles, rect, gattr, total, gx, rows, tile, tile,
+               True, row0)
+        k2 = tile_kernels.expand_instances(*exp)
+        p2 = tile_kernels.expand_instances_plain(*exp)
+        assert torch.equal(k2[0], p2[0]) and torch.equal(k2[1], p2[1])
+        assert torch.equal(k2[2].view(torch.int32), p2[2].view(torch.int32))
+        bins = binning.bin_gaussians_staged(pre, o, gx, rows, 1 << 20, tile,
+                                            tile, y0_tiles=row0)
+        fargs = (bins.attr, bins.tile_start, bins.tile_count, bg, w, h, tile,
+                 tile)
+        k1 = tile_kernels.forward_tiles(*fargs, 128, grid_y_local=rows,
+                                        y0_tiles=row0)
+        p1 = compositing.forward_tiles(*fargs, grid_y_local=rows,
+                                       y0_px=row0 * tile)
+        _assert_forward_equal(k1, p1, True)
+        strips.append(k1)
+        d_color = torch.randn(3, rows * tile, w, generator=gen).to(dev)
+        bargs = (bins.attr, bins.tile_start, bins.tile_count, bg,
+                 k1.n_contrib, k1.color, k1.final_t, d_color, w, h, tile,
+                 tile)
+        k3 = tile_kernels.backward_tiles(*bargs, grid_y_local=rows,
+                                         y0_tiles=row0)
+        p3 = compositing.backward_tiles(*bargs, grid_y_local=rows,
+                                        y0_px=row0 * tile)
+        if int(bins.tile_count.sum()) == 0:
+            assert not k3.any() and not p3.any()
+            continue
+        for r in range(9):
+            scale = p3[r].abs().max().item()
+            assert (k3[r] - p3[r]).abs().max().item() <= 1e-5 * scale, r
+            assert ((k3[r] - p3[r]).norm()
+                    / p3[r].norm().clamp_min(1e-30)).item() <= 1e-5, r
+        assert not k3[:, (p3 == 0).all(0)].any()
+    for key in ("color", "depth", "final_t", "n_contrib"):
+        dim = 1 if key == "color" else 0
+        got = torch.cat([getattr(x, key) for x in strips], dim=dim)
+        assert torch.equal(got.narrow(dim, 0, h), getattr(full, key)), key
+
+
 # border points of tests/test_torch_grid_scatter.py's sample_mip test
 _BORDER = [[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.0], [0.999, 0.5],
            [0.5, 0.001], [0.015, 0.985], [0.5, 0.5]]

@@ -53,9 +53,9 @@ def test_sources_name_no_jax():
 
 
 def test_ported_surface_is_covered():
-    """Every module of the JAX package outside parallel/ has its namesake
-    here, so the two checks above reach the whole port: utils/, prep.py
-    and native.py too."""
+    """Every module of the JAX package has its namesake here, so the two
+    checks above reach the whole port: parallel/, utils/, prep.py and
+    native.py too."""
     jax_pkg = os.path.join(ROOT, "saro_gs_tpu")
     theirs = set()
     for dirpath, _, files in os.walk(jax_pkg):
@@ -64,13 +64,14 @@ def test_ported_surface_is_covered():
                 rel = os.path.relpath(os.path.join(dirpath, f), jax_pkg)
                 theirs.add(rel[:-3].replace(os.sep, "."))
     theirs = {m[:-len(".__init__")] if m.endswith(".__init__") else m
-              for m in theirs if not m.startswith("parallel")}
+              for m in theirs}
     mine = {m[len("saro_gs_torch."):] for m in _modules()
             if m != "saro_gs_torch"}
     theirs.discard("__init__")
     assert theirs <= mine, sorted(theirs - mine)
     assert {"native", "prep", "utils", "utils.visual", "train.lpips",
-            "data.hypernerf", "data.preprocess"} <= mine
+            "data.hypernerf", "data.preprocess", "parallel",
+            "parallel.runtime", "parallel.shard"} <= mine
 
 
 def test_native_build_writes_only_under_build(tmp_path, monkeypatch):
