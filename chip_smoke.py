@@ -107,9 +107,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the checkpoint written by rank 0 alone, its render at PSNR >= 50 dB
      against phase 11's, it/s beside phase 11's.  A failed rank fails the
      phase;
- 14. one JSON line of results, one of each trainer phase, one of the
-     parallel path, one of the kernels, then the card line, then the
-     result line {"ok": true, "device": {...}}.
+ 14. the Neural3D-scale trainer: configs/synth/stress_szcap.json at its
+     widths (planes 512^3 x 256, 32 channels, batch 4 at 1352x1014,
+     duration 300, capacity 262,144, max_instances 1,048,576 presized by
+     3.0, max_screen_size 150, dynamic from iteration 1), only its
+     schedule cut: 1,010 iterations, densify from 200 every 100 until 900,
+     opacity reset at 600, test and save at 1,010 (the SH degree rises at
+     1,000).  The scene is saro_gs_torch/data/synth.py's, built in memory
+     and registered as chip_smoke_stress: build_gt(7) rendered on the card
+     by ring_cameras(21) (fovx 0.85), the 20 training cameras at frames
+     0, 20, ..., 280 of 300 (uint8), camera 0 at frames 0, 140 and 280
+     the test views, 100,000 points of init_cloud(gt, 300, 100000, 7).
+     Checked: (a) K4 on the first step's own grid gradients of the xy
+     plane (512x512, 8 levels, 349,520 cells) and the xt plane (32 x 256 x
+     512, 131,072 cells), both sorted in 3 radix passes, within 1e-5 of
+     the output's largest entry and two launches equal to the bit, ms
+     beside one index_add_ and the byte bound; (b) K2 and K1 equal to the
+     bit and K3 within its gates on the trained state's test frame;
+     (c) two identical first steps equal to the bit; (d) the run through
+     cli.train_main: no bad step, nothing dropped on a checked step or at
+     eval, the overflow doublings accounting for the final capacity, the
+     last loss logged before the opacity reset below 0.7 of the first,
+     each densify's counts adding up, SH degree 1 at the end, the test
+     PSNR above the initial state's, the checkpoint reloading to the same
+     render to the bit.  Measured: it/s from iteration 50 to 1,000,
+     train_step_core alone over 8 steps, ms per densify pass, ms per stage
+     over 3 steps, the card's busy share over 5 iterations, peak memory,
+     the kernels' launches over the run, the phase's seconds (limit 600);
+ 15. one JSON line of results, one of each trainer phase, one of the
+     parallel path, one of the stress phase ({"phase": "stress", ...}),
+     one of the kernels, then the card line, then the result line
+     {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Times are the card's own: read them beside the
 card's name and power limit printed with them.
@@ -179,6 +207,20 @@ PARALLEL_FIELDS = ("xyz", "scaling", "opacity", "temporal_pos")
 ALT_ORDER = [0, 2, 1, 3]
 MESH_DIR = os.path.join(HERE, "build", "chip_smoke_mesh")
 PARALLEL_TIMEOUT_S = 420.0
+# phase 14: configs/synth/stress_szcap.json at its widths on the port's
+# synthetic scene (saro_gs_torch/data/synth.py), only its schedule cut;
+# its config and model (git-ignored), and the phase's own time limit
+STRESS_CONFIG = os.path.join(HERE, "configs", "synth", "stress_szcap.json")
+STRESS_DIR = os.path.join(HERE, "build", "chip_smoke_stress")
+STRESS_LOADER = "chip_smoke_stress"
+STRESS_CAMS, STRESS_INIT, STRESS_SEED = 21, 100_000, 7
+STRESS_TRAIN_FRAMES = tuple(range(0, 300, 20))
+STRESS_TEST_FRAMES = (0, 140, 280)
+STRESS_SCHEDULE = dict(iterations=1010, densify_from_iter=200,
+                       densification_interval=100, densify_until_iter=900,
+                       opacity_reset_interval=600, test_iteration=1010,
+                       testing_iterations=[1010], save_iterations=[1010])
+STRESS_LIMIT_S = 600
 
 
 def log(msg):
@@ -1367,6 +1409,634 @@ def parallel_phase(cfg, mcfg, params, nets, alive, fstatic, rcfg, tin,
     return results, launches
 
 
+def stress_scene(duration, dev):
+    """Phase 14's scene, in memory, as the blender reader reads what
+    saro_gs_torch.data.synth writes: synth.build_gt(7) rendered on the card
+    at 1352x1014 (uint8) by 21 ring cameras (fovx 0.85), frame j at scene
+    time j / (duration - 1) and camera timestamp j / duration; camera 0 at
+    STRESS_TEST_FRAMES the test views, the other 20 at STRESS_TRAIN_FRAMES
+    the training views; the init cloud of synth.init_cloud quantised as
+    points3d.ply stores it."""
+    from saro_gs_torch.data import cameras, readers, synth
+    from saro_gs_torch.models import gaussians as gm
+    gt = synth.build_gt(STRESS_SEED)
+    ring = cameras.ring_cameras(STRESS_CAMS)
+    views = []
+    for ci in range(STRESS_CAMS):
+        for j in STRESS_TRAIN_FRAMES if ci else STRESS_TEST_FRAMES:
+            t = j / (duration - 1)
+            cam = cameras.camera_from_c2w(ring[ci], 0.85, W, H,
+                                          t * (duration - 1) / duration)
+            views.append((dataclasses.replace(
+                cam, uid=len(views), image_name=f"r_{ci:02d}_{j:03d}"), t))
+    for (cam, _), img in zip(views, synth.render_frames(gt, views, W, H,
+                                                         dev)):
+        cam.set_image(img.permute(2, 0, 1).contiguous().cpu().numpy())
+    n_test = len(STRESS_TEST_FRAMES)
+    test, train = [c for c, _ in views[:n_test]], [c for c, _ in
+                                                   views[n_test:]]
+    pts, cols, times = synth.init_cloud(gt, duration, STRESS_INIT,
+                                        STRESS_SEED)
+    radius, translate = readers.nerfpp_norm(train)
+    return readers.SceneInfo(
+        point_cloud=gm.PointCloud(
+            points=pts.astype(np.float64),
+            colors=(cols * 255).astype(np.uint8) / 255.0,
+            times=times.astype(np.float64)),
+        train_cameras=train, test_cameras=test, val_cameras=[],
+        nerf_radius=radius, nerf_translate=translate, ply_path="")
+
+
+def stress_phase(dev, tk, timing):
+    """Phase 14: configs/synth/stress_szcap.json at its widths, its
+    schedule cut (STRESS_SCHEDULE), trained through cli.train_main on
+    stress_scene.  Before the run, on the trainer's initial state and the
+    run's first batch: two identical first steps equal to the bit, K4 on
+    that step's own grid gradients of the xy and xt planes, the test
+    views' PSNR.  After it, K2, K1 and K3 on the trained state's test
+    frame.  Returns (the "stress" results, the kernels' launches over the
+    run)."""
+    import signal
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from saro_gs_torch import cli, render, scene
+    from saro_gs_torch import eval as eval_mod
+    from saro_gs_torch.data import readers
+    from saro_gs_torch.train import step as step_mod
+    from saro_gs_torch.train.trainer import Trainer
+
+    def over_time(signum, frame):
+        print(f"[chip_smoke] FAIL: stress: the phase ran past its "
+              f"{STRESS_LIMIT_S} s", file=sys.stderr, flush=True)
+        os._exit(1)
+    signal.signal(signal.SIGALRM, over_time)
+    signal.alarm(STRESS_LIMIT_S)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    t_phase = t0 = time.perf_counter()
+    with open(STRESS_CONFIG) as f:
+        config = json.load(f)
+    info = stress_scene(config["duration"], dev)
+    readers.SCENE_READERS[STRESS_LOADER] = lambda *a, **k: info
+    shutil.rmtree(STRESS_DIR, ignore_errors=True)
+    os.makedirs(STRESS_DIR)
+    config.update(STRESS_SCHEDULE, loader=STRESS_LOADER)
+    cfg_path = os.path.join(STRESS_DIR, "stress_szcap_1010.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    model = os.path.join(STRESS_DIR, "model")
+    scene_s = time.perf_counter() - t0
+    gt_gb = sum(c._image.nbytes for c in info.train_cameras) / 1e9
+    log(f"stress: scene of {len(info.train_cameras)} training and "
+        f"{len(info.test_cameras)} test views at {W}x{H} ({gt_gb:.3f} GB of "
+        f"uint8 ground truth) and {STRESS_INIT} points built in "
+        f"{scene_s:.1f} s; schedule {STRESS_SCHEDULE}")
+
+    # wrapped for the run: densify passes timed, eval renders' drops, and
+    # the checks on the initial state before the loop starts
+    timed, eval_dropped, pre = [], [], {}
+    originals = {"_densify": Trainer._densify, "run": Trainer.run,
+                 "render": eval_mod.Evaluator.render}
+
+    def densify(self, *a, **k):
+        sync()
+        t = time.perf_counter()
+        out = originals["_densify"](self, *a, **k)
+        sync()
+        timed.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def eval_render(self, *a, **k):
+        out = originals["render"](self, *a, **k)
+        eval_dropped.append(out[0].num_dropped)
+        return out
+
+    def run(self, *a, **k):
+        if not pre:
+            pre.update(stress_initial_checks(self, timing))
+            tk.reset_launches()
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        return originals["run"](self, *a, **k)
+    Trainer._densify, Trainer.run = densify, run
+    eval_mod.Evaluator.render = eval_render
+    t0 = time.perf_counter()
+    try:
+        tr = cli.train_main(["-s", "in-memory", "--config", cfg_path, "-m",
+                             model, "--device", str(dev)])
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = dict(tk.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        cfg = tr.cfg
+        hist = {h["it"]: h for h in tr.history}
+        st = tr.state
+        check(st.step == cfg.iterations, f"stress: stopped at {st.step}")
+        check(st.bad_steps == 0
+              and not any("bad_step" in h for h in tr.history),
+              f"stress: {st.bad_steps} bad steps")
+        check(hist[1]["loss"] == pre["loss_step1"],
+              f"stress: iteration 1 logged loss {hist[1]['loss']}, the "
+              f"checked first step {pre['loss_step1']}")
+        # a view that dropped instances doubles the capacity at the next
+        # check: every doubling is logged, and they account for the
+        # capacity the run ends with
+        check(all(hwm > 0 for _, hwm in tr.overflows)
+              and tr.rcfg.max_instances
+              == pre["max_instances"] << len(tr.overflows),
+              f"stress: overflow doublings {tr.overflows} do not account "
+              f"for max_instances {pre['max_instances']} -> "
+              f"{tr.rcfg.max_instances}")
+        check(eval_dropped and not any(eval_dropped),
+              f"stress: eval renders dropped instances: {eval_dropped}")
+        first, last = hist[1]["loss"], max(hist.items())[1]["loss"]
+        before_reset = max(i for i in hist if i < cfg.opacity_reset_interval)
+        pre_reset = hist[before_reset]["loss"]
+        check(pre_reset < 0.7 * first,
+              f"stress: loss {first} -> {pre_reset} (it {before_reset})")
+        its = [d["it"] for d in tr.densify_log]
+        check(its == list(range(cfg.densify_from_iter
+                                + cfg.densification_interval,
+                                cfg.densify_until_iter,
+                                cfg.densification_interval)),
+              f"stress: densify ran at {its}")
+        for d in tr.densify_log:
+            check(d["after"] == d["before"] + d["cloned"] + d["split"]
+                  - d["pruned"], f"stress: densify counts do not add up: "
+                  f"{d}")
+        check(tr.active_sh_degree == 1,
+              f"stress: SH degree {tr.active_sh_degree} after "
+              f"{cfg.iterations} iterations")
+        check(all(launches[k] > 0 for k in launches),
+              f"stress: a kernel never launched in the run: {launches}")
+        # the loop's rate, loader and control included, from iteration 50
+        # to the last one logged
+        a, b = 50, max(hist)
+        dyn = (b - a) / (hist[b]["elapsed_s"] - hist[a]["elapsed_s"])
+        with open(os.path.join(model,
+                               f"{cfg.iterations}_runtimeresults.json")) as f:
+            report = json.load(f)
+        check(report["PSNR"] > pre["psnr_init"],
+              f"stress: test PSNR {report['PSNR']} at {cfg.iterations}, "
+              f"{pre['psnr_init']} from the initial state")
+    finally:
+        Trainer._densify, Trainer.run = originals["_densify"], \
+            originals["run"]
+        eval_mod.Evaluator.render = originals["render"]
+    log(f"stress: {cfg.iterations} iterations in {run_s:.1f} s "
+        f"({dyn:.3f} it/s over iterations {a} to {b}), loss {first:.5f} -> "
+        f"{pre_reset:.5f} (it {before_reset}) -> {last:.5f}, "
+        f"{tr.n_alive()} points, capacity {st.alive.shape[0]}, "
+        f"max_instances {pre['max_instances']} presized -> "
+        f"{tr.rcfg.max_instances} (doublings {tr.overflows}); densify "
+        f"{tr.densify_log} in {[round(x, 1) for x in timed]} ms; SH degree "
+        f"{tr.active_sh_degree}; test PSNR {pre['psnr_init']:.3f} at the "
+        f"start -> {report['PSNR']:.3f} (SSIM {report['SSIM']:.4f}); peak "
+        f"memory {peak_gib:.2f} GiB; launches {launches}")
+
+    # the saved checkpoint renders as the trainer's final state does
+    cam = info.test_cameras[len(info.test_cameras) // 2]
+    loaded = scene.Scene(cfg, load_iteration=str(cfg.iterations), device=dev)
+    bg = torch.ones(3, device=dev)
+    rcfg = cfg.raster_config()._replace(max_instances=tr.rcfg.max_instances)
+    outs = []
+    for p, n_, al, fs in ((st.points, st.nets, st.alive, tr.scene.fstatic),
+                          (loaded.params, loaded.nets, loaded.alive,
+                           loaded.fstatic)):
+        out, _ = render.test_render(cam.raster_params(dev), cam.timestamp, p,
+                                    n_, al, tr.mcfg, fs, bg, width=W,
+                                    height=H, sh_degree=cfg.sh_degree,
+                                    rcfg=rcfg)
+        check(out.num_dropped == 0, "stress: the check render dropped")
+        outs.append(out)
+    check(all(torch.equal(getattr(outs[0], k), getattr(outs[1], k))
+              for k in ("color", "depth", "final_t")),
+          "stress: the reloaded checkpoint renders differently")
+    log(f"stress: checkpoint {cfg.iterations} ({loaded.alive.shape[0]} "
+        f"rows) renders test view {cam.image_name} as the trainer's state "
+        f"does, to the bit")
+    del loaded
+
+    # K2, K1 and K3 on that view of the trained state
+    d, pre_frame = stage_frame(st.points, st.nets, st.alive, tr.mcfg,
+                               tr.scene.fstatic, cam.raster_params(dev),
+                               cam.timestamp, rcfg)
+    fk = frame_kernels("stress", d, pre_frame, rcfg.max_instances, bg, rcfg,
+                       tk, timing)
+    del d, pre_frame
+
+    # train_step_core alone on one batch of the loader: 8 steps, then 3
+    # with the stage marks
+    loader = tr.scene.train_loader(cfg.batch, num_workers=2, seed=cfg.seed)
+    try:
+        cams_b, gt_b, ts_b = tr._to_device(next(iter(loader)))
+    finally:
+        loader.close()
+    scale_int = tr.integral_flags(st.step + 1)[1]
+
+    def core(state):
+        state, m = step_mod.train_step_core(
+            state, cams_b, gt_b, ts_b, tr.bg, tr.scene.fstatic,
+            tr._statics(), stage="dynamatic", sh_degree=cfg.sh_degree,
+            scale_integral=scale_int,
+            sh_mask=tr._sh_mask(tr.active_sh_degree))
+        check(m["bad_step"] == 0 and m["dropped"] == 0,
+              f"stress: a train_step_core step went wrong: {m}")
+        return state
+    state = core(step_mod.clone_state(st))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        state = core(state)
+    sync()
+    core_its = 8 / (time.perf_counter() - t0)
+    with timing.record() as rec:
+        for _ in range(3):
+            state = core(state)
+    stages = {k: v / 3 for k, v in rec.stages().items()}
+    del state
+    # 5 iterations of the loop under torch.profiler: the card's busy share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        tr.run(max_iterations=cfg.iterations + 5, log_every=10 ** 6)
+        sync()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / 5
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / 5
+    check(tr.state.bad_steps == 0 and tr.state.dropped_hwm == 0,
+          "stress: the traced iterations went wrong")
+    log(f"stress: train_step_core alone {core_its:.3f} it/s; ms per step by "
+        "stage " + json.dumps({k: round(v, 3) for k, v in stages.items()})
+        + f" (sum {sum(stages.values()):.2f}); card busy {busy_ms:.2f} ms "
+        f"of {traced_ms:.2f} ms an iteration under the profiler "
+        + (f"({100 * busy_ms / traced_ms:.1f}%)" if busy_ms > 0 else
+           "(no device time reported: not measured)"))
+    readers.SCENE_READERS.pop(STRESS_LOADER, None)
+    phase_s = time.perf_counter() - t_phase
+    signal.alarm(0)
+    log(f"stress: the phase took {phase_s:.1f} s (limit {STRESS_LIMIT_S} "
+        f"s); card {smi_line()}")
+    return {
+        "config": os.path.relpath(STRESS_CONFIG, HERE),
+        "schedule": STRESS_SCHEDULE, "iterations": cfg.iterations,
+        "batch": cfg.batch, "resolution": [W, H],
+        "planes": [list(p.shape) for p in st.nets.field.planes],
+        "train_views": len(info.train_cameras),
+        "test_views": len(info.test_cameras), "init_points": STRESS_INIT,
+        "gt_bytes": int(gt_gb * 1e9), "scene_s": scene_s, "run_s": run_s,
+        "its_per_s_50_1000": dyn, "train_step_core_its_per_s": core_its,
+        "stages_ms": stages, "densify_ms": timed, "densify": tr.densify_log,
+        "overflows": tr.overflows,
+        "max_instances": [pre["max_instances"], tr.rcfg.max_instances],
+        "points_final": tr.n_alive(), "capacity": st.alive.shape[0],
+        "sh_degree": tr.active_sh_degree, "loss_first": first,
+        "loss_before_reset": pre_reset, "loss_last": last,
+        "psnr_init": pre["psnr_init"],
+        "eval": {k: report[k] for k in ("PSNR", "SSIM", "MS-SSIM")},
+        "peak_memory_gib": peak_gib, "card_busy_ms_per_it": busy_ms or None,
+        "traced_ms_per_it": traced_ms, "launches": launches,
+        "k4": pre["k4"], "frame": fk, "phase_s": phase_s}, launches
+
+
+def stress_initial_checks(tr, timing):
+    """Phase 14 on the trainer's initial state and the run's first batch
+    (the loader's seed): two identical first steps equal to the bit, with
+    nothing dropped; K4 on the grid gradients of that step's xy and xt
+    planes (sample_mip's cotangent at iteration 1); the test views' PSNR
+    through the eval's own report.  Returns what the run is held to."""
+    import torch
+    from saro_gs_torch import eval as eval_mod
+    from saro_gs_torch.models import field as field_mod
+    from saro_gs_torch.ops import grid_scatter, mip
+    from saro_gs_torch.train import step as step_mod
+    cfg = tr.cfg
+    check(tr.active_sh_degree == 0, "stress: the run starts above SH 0")
+    loader = tr.scene.train_loader(cfg.batch, num_workers=2, seed=cfg.seed)
+    try:
+        cams_b, gt_b, ts_b = tr._to_device(next(iter(loader)))
+    finally:
+        loader.close()
+
+    def first_step(state):
+        return step_mod.train_step_core(
+            state, cams_b, gt_b, ts_b, tr.bg, tr.scene.fstatic,
+            tr._statics(), stage=tr.stage_at(1), sh_degree=cfg.sh_degree,
+            scale_integral=tr.integral_flags(1)[1],
+            sh_mask=tr._sh_mask(tr.active_sh_degree))
+
+    def leaves_of(state):
+        return (step_mod.param_leaves(state.points, state.nets)
+                + state.opt.mu + state.opt.nu + list(state.aux))
+
+    # the first step's grid gradients, as its backward hands them to K4;
+    # a plane's call is known by its coordinates
+    state = step_mod.clone_state(tr.state)
+    planes = {p.data_ptr(): i for i, p in enumerate(state.nets.field.planes)}
+    sampled, taps = [], {}
+    sample, scatter = mip.sample_mip, grid_scatter.scatter_mip_taps
+
+    def sample_rec(grid, coords, level, max_level):
+        sampled.append((planes[grid.data_ptr()], coords))
+        return sample(grid, coords, level, max_level)
+
+    def scatter_rec(coords, level, dfeat, h, w, n_levels):
+        i, = [i for i, c in sampled if torch.equal(c, coords)]
+        taps[i] = (coords.clone(), None if level is None else level.clone(),
+                   dfeat.clone(), h, w, n_levels)
+        return scatter(coords, level, dfeat, h, w, n_levels)
+    mip.sample_mip, grid_scatter.scatter_mip_taps = sample_rec, scatter_rec
+    try:
+        sa, ma = first_step(state)
+    finally:
+        mip.sample_mip, grid_scatter.scatter_mip_taps = sample, scatter
+    sb, mb = first_step(step_mod.clone_state(tr.state))
+    torch.cuda.synchronize()
+    check(ma == mb, f"stress: two identical first steps report "
+          f"differently: {ma} vs {mb}")
+    check(ma["bad_step"] == 0 and ma["dropped"] == 0,
+          f"stress: the first step went wrong: {ma}")
+    for k, (x, y) in enumerate(zip(leaves_of(sa), leaves_of(sb))):
+        check(torch.equal(x, y), f"stress: leaf {k} differs between two "
+              "identical first steps")
+    n_leaves = len(leaves_of(sa))
+    del sa, sb
+    log(f"stress: two identical first steps from the initial state are "
+        f"equal to the bit ({n_leaves} tensors); loss {ma['loss']:.6f}")
+    k4 = {}
+    for name in ("xy", "xt"):
+        a, b = "xyzt".index(name[0]), "xyzt".index(name[1])
+        i = field_mod.COMBS.index((a, b))
+        check(i in taps, f"stress: no grid gradient for plane {name}")
+        coords, lvl, df, h, w, n_lv = taps[i]
+        k4[name] = k4_check(f"plane {name} at iteration 1", coords, lvl, df,
+                            h, w, n_lv, timing)
+        check(k4[name]["radix_passes"] == 3,
+              f"stress: plane {name}'s {k4[name]['cells']} cells sort in "
+              f"{k4[name]['radix_passes']} passes, not 3")
+    del taps
+    psnr = eval_mod.quick_test_report(tr, tr.scene.test_cameras(),
+                                      histograms=False)["PSNR"]
+    log(f"stress: the initial state renders the test views at "
+        f"{psnr:.3f} dB; max_instances {tr.rcfg.max_instances} after the "
+        f"presize")
+    return {"loss_step1": ma["loss"], "k4": k4, "psnr_init": psnr,
+            "max_instances": tr.rcfg.max_instances}
+
+
+def k4_check(name, coords, lvl, df, h, w, n_lv, timing):
+    """K4 (scatter_mip_taps) on one plane's taps against its plain version:
+    two launches equal to the bit, within 1e-5 of the output's largest
+    entry; its ms beside the plain version's and one index_add_ over the
+    same taps, and its bound from these inputs.  Returns the numbers."""
+    import torch
+    from saro_gs_torch.ops import grid_scatter
+    dev = df.device
+    npts, c_feat = df.shape
+    args = (coords, lvl, df, h, w, n_lv)
+    ko = grid_scatter.scatter_mip_taps(*args)
+    ko2 = grid_scatter.scatter_mip_taps(*args)
+    po = grid_scatter.scatter_mip_taps_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(ko, ko2), f"K4 {name}: two launches differ")
+    scale = float(po.abs().max())
+    err = float((ko - po).abs().max())
+    check(ko.shape == po.shape and scale > 0 and err <= 1e-5 * scale,
+          f"K4 {name}: differs by {err} (output max {scale})")
+    ms = timing.event_ms(lambda: grid_scatter.scatter_mip_taps(*args), 20)
+    plain_ms = timing.event_ms(
+        lambda: grid_scatter.scatter_mip_taps_plain(*args), 5)
+    cells, wts, total = grid_scatter.mip_taps(coords, lvl, h, w, n_lv)
+
+    def library():
+        out = torch.zeros((total, c_feat), device=dev)
+        out.index_add_(0, cells.reshape(-1),
+                       (wts[:, :, None] * df[None]).reshape(-1, c_feat))
+        return out
+    lib_ms = timing.event_ms(library, 10)
+    n_taps = cells.shape[0]
+    # coords and level read once, dfeat read once, the output written
+    nbytes = npts * 8 + (npts * 4 if n_lv else 0) + npts * c_feat * 4 \
+        + c_feat * total * 4
+    ops = n_taps * npts * c_feat * K4_FLOPS_PER_TAP_CHANNEL
+    res = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               beats_library=ms < lib_ms, taps=n_taps * npts, cells=total,
+               radix_passes=grid_scatter.radix_passes(total), bytes=nbytes,
+               max_abs_err=err, max_rel_err=err / scale,
+               bound_ms=max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3,
+               bound_by="operations" if ops / PEAK_F32 > nbytes / PEAK_BYTES
+               else "bytes")
+    log(f"K4 scatter_mip_taps, {name} ({n_taps}x{npts} taps -> "
+        f"{c_feat}x{total}, {n_lv} levels, {res['radix_passes']} sort "
+        f"passes, dfeat row stride {df.stride(0)}): error "
+        f"{err / scale:.3g} of the output's max (limit 1e-5), bit-equal; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one index_add_ "
+        f"{lib_ms:.4f} ms "
+        f"({'kernel faster' if ms < lib_ms else 'LIBRARY FASTER'}), "
+        f"bound {res['bound_ms']:.5f} ms ({nbytes} bytes)")
+    return res
+
+
+def stage_frame(params, nets, alive, mcfg, fstatic, cam, ts, rcfg,
+                feat=None):
+    """One frame's deformed Gaussians and their preprocess at 1352x1014,
+    as the eval render makes them: (deformed, preprocessed)."""
+    import torch
+    from saro_gs_torch import render
+    from saro_gs_torch.models import gaussians as gm
+    from saro_gs_torch.ops import projection
+    with torch.no_grad():
+        d = gm.deform(params, nets, mcfg, fstatic, ts, feat=feat)
+        active = alive * (d.state[:, 0] > render.EVAL_STATE_CUTOFF)
+        pre = projection.preprocess(
+            d.xyz, d.scaling, d.rotation, d.opacity.reshape(-1), cam, W, H,
+            rcfg.tile_x, rcfg.tile_y, sh_degree=3, shs=d.shs, active=active,
+            tight_rect=rcfg.tight_rect)
+    return d, pre
+
+
+def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing):
+    """K2, K1 and K3 against their plain versions on one staged frame at
+    1352x1014: K2's instance tables and sorted tile ranges and K1's colour,
+    depth, final T and n_contrib equal to the bit (need_aux=False the same
+    image), the share of (8x4 patch, instance) pairs K1's warp cull drops,
+    K3's rows within K3_TOL of their largest entry and in relative L2 on a
+    seeded colour cotangent, unvisited slots zero, two launches equal to
+    the bit.  Returns each kernel's numbers (ms, plain ms, bound) by name,
+    "K2", "K1", "K3", and the frame's instance counts."""
+    import torch
+    from saro_gs_torch.ops import binning, compositing
+    gx = (W + rcfg.tile_x - 1) // rcfg.tile_x
+    gy = (H + rcfg.tile_y - 1) // rcfg.tile_y
+    nt = gx * gy
+    dev = bg.device
+
+    # ---- K2 against its plain version
+    opac = d.opacity.reshape(-1)
+    offsets, tiles, rect, gattr, total = binning.expand_inputs(pre, opac)
+    n_inst = min(total, cap)
+    check(total <= cap, f"{label}: {total - cap} instances dropped at "
+          f"{W}x{H}")
+    exp_args = (offsets, tiles, rect, gattr, n_inst, gx, gy, rcfg.tile_x,
+                rcfg.tile_y, rcfg.tight_rect)
+    kk, kg, ka = tk.expand_instances(*exp_args)
+    pk, pg, pa = tk.expand_instances_plain(*exp_args)
+    torch.cuda.synchronize()
+    check(torch.equal(kk, pk), f"{label} K2: sort keys (tile, depth) differ")
+    check(torch.equal(kg, pg), f"{label} K2: Gaussian ids differ")
+    k2_err = float((ka - pa).abs().max()) if n_inst else 0.0
+    check(torch.equal(ka.view(torch.int32), pa.view(torch.int32)),
+          f"{label} K2: attributes differ (max abs {k2_err})")
+    ks = binning.sort_instances(kk, kg, ka, nt)
+    ps = binning.sort_instances(pk, pg, pa, nt)
+    check(torch.equal(ks[2], ps[2]) and torch.equal(ks[3], ps[3]),
+          f"{label} K2: tile_start/tile_count differ after the sort")
+    n_valid = int(ks[3].sum())
+    k2_ms, k2_wrapper_ms, k2_src, _ = call_ms(
+        lambda: tk.expand_instances(*exp_args), timing)
+    k2_plain_ms = timing.event_ms(
+        lambda: tk.expand_instances_plain(*exp_args), 5)
+    n = offsets.shape[0]
+    k2_bytes = n * (4 + 4 + 12 + 40) + n_inst * (8 + 4 + 40)
+    k2_ops = n_inst * K2_FLOPS_PER_INSTANCE
+    k2_bound = max(k2_bytes / PEAK_BYTES, k2_ops / PEAK_F32) * 1e3
+    k2_by = "operations" if k2_ops / PEAK_F32 > k2_bytes / PEAK_BYTES \
+        else "bytes"
+    log(f"{label} K2 expand: exact match on {n_inst} instances ({n_valid} "
+        f"valid, {n} Gaussians); kernel {k2_ms:.4f} ms ({k2_src}), wrapper "
+        f"{k2_wrapper_ms:.4f} ms a call, plain {k2_plain_ms:.4f} ms, bound "
+        f"{k2_bound:.4f} ms ({k2_bytes} bytes)")
+
+    # ---- K1 against its plain version
+    attr_s, _, tstart, tcount, _ = ks
+    kf = tk.forward_tiles(attr_s, tstart, tcount, bg, W, H, rcfg.tile_x,
+                          rcfg.tile_y, rcfg.chunk, need_aux=True)
+    kf_noaux = tk.forward_tiles(attr_s, tstart, tcount, bg, W, H,
+                                rcfg.tile_x, rcfg.tile_y, rcfg.chunk,
+                                need_aux=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pf = compositing.forward_tiles(attr_s, tstart, tcount, bg, W, H,
+                                   rcfg.tile_x, rcfg.tile_y, need_aux=True)
+    torch.cuda.synchronize()
+    k1_plain_ms = (time.perf_counter() - t0) * 1e3
+    col_err = float((kf.color - pf.color).abs().max())
+    for name in ("color", "depth", "final_t", "n_contrib"):
+        check(torch.equal(getattr(kf, name), getattr(pf, name)),
+              f"{label} K1: {name} differs from the plain version (colour "
+              f"max abs err {col_err})")
+    check(torch.equal(kf_noaux.color, kf.color)
+          and torch.equal(kf_noaux.depth, kf.depth)
+          and torch.equal(kf_noaux.final_t, kf.final_t),
+          f"{label} K1: need_aux=False changes the image")
+    cull_pairs, cull_kept = compositing.cull_counts(
+        attr_s, tstart, tcount, W, H, rcfg.tile_x, rcfg.tile_y)
+    k1_culled = 1.0 - cull_kept / cull_pairs
+    band = f"{rcfg.tile_x}x{tk.forward_band_rows(rcfg.tile_x, rcfg.tile_y)}"
+    log(f"{label} K1 forward vs plain, {nt} tiles: colour, depth, final T "
+        f"and n_contrib equal to the bit; max tile count "
+        f"{int(tcount.max())}; bands of {band} pixels, batches of "
+        f"{rcfg.chunk}; the warp cull drops {cull_pairs - cull_kept} of "
+        f"{cull_pairs} (8x4 patch, instance) pairs "
+        f"({100 * k1_culled:.2f}%)")
+
+    def k1_call():
+        return tk.forward_tiles(attr_s, tstart, tcount, bg, W, H,
+                                rcfg.tile_x, rcfg.tile_y, rcfg.chunk,
+                                need_aux=False)
+    k1_ms, k1_wrapper_ms, k1_src, k1_by_kernel = call_ms(k1_call, timing)
+    pairs = int(pf.n_walked.sum())
+    k1_bytes = 10 * 4 * n_valid + 8 * nt + 5 * 4 * W * H
+    k1_ops = pairs * K1_FLOPS_PER_PAIR
+    k1_bound = max(k1_bytes / PEAK_BYTES, k1_ops / PEAK_F32) * 1e3
+    k1_by = "operations" if k1_ops / PEAK_F32 > k1_bytes / PEAK_BYTES \
+        else "bytes"
+    log(f"{label} K1 forward: {k1_ms:.4f} ms of device time a call "
+        f"({k1_src}; "
+        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in k1_by_kernel.items())
+        + f"), wrapper {k1_wrapper_ms:.4f} ms a call, plain "
+        f"{k1_plain_ms:.1f} ms (one call), bound {k1_bound:.4f} ms ({pairs} "
+        f"instance-pixel pairs walked, {k1_bytes} bytes)")
+
+    # ---- K3 against its plain version
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    d_color = torch.randn(3, H, W, generator=gen).to(dev)
+    k3_args = (attr_s, tstart, tcount, bg, kf.n_contrib, kf.color,
+               kf.final_t, d_color, W, H, rcfg.tile_x, rcfg.tile_y)
+    kb = tk.backward_tiles(*k3_args)
+    kb2 = tk.backward_tiles(*k3_args)
+    torch.cuda.synchronize()
+    check(torch.equal(kb, kb2), f"{label} K3: two launches differ")
+    t0 = time.perf_counter()
+    pb, k3_contrib = compositing.backward_tiles(*k3_args, count_pairs=True)
+    k3_contrib = int(k3_contrib)
+    k3_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.isfinite(kb).all(), f"{label} K3: non-finite gradients")
+    # each row against its largest entry, and in relative L2 so that the
+    # typical entries count beside the few large ones
+    k3_err, k3_rel, k3_l2 = 0.0, 0.0, 0.0
+    for r in range(compositing.GRAD_ROWS):
+        scale = float(pb[r].abs().max())
+        err = float((kb[r] - pb[r]).abs().max())
+        check(scale > 0, f"{label} K3: plain row {r} is all zero")
+        l2 = float((kb[r] - pb[r]).double().norm() / pb[r].double().norm())
+        check(err <= K3_TOL * scale,
+              f"{label} K3: row {r} differs by {err} (row max {scale})")
+        check(l2 <= K3_TOL, f"{label} K3: row {r} relative L2 error {l2}")
+        k3_err = max(k3_err, err)
+        k3_rel = max(k3_rel, err / scale)
+        k3_l2 = max(k3_l2, l2)
+    unvisited = (pb == 0).all(dim=0)
+    check(not bool(kb[:, unvisited].any()),
+          f"{label} K3: a slot the replay never visits is not zero")
+    k3_ms = timing.event_ms(lambda: tk.backward_tiles(*k3_args), 10)
+    k3_pairs = int(kf.n_contrib.sum())
+    check(0 < k3_contrib <= k3_pairs,
+          f"{label} K3: contributing pairs miscounted")
+    k3_bytes = (10 + 9) * 4 * n_valid + 8 * nt + 8 * 4 * W * H
+    k3_ops = k3_pairs * K3_FLOPS_PER_REPLAYED_PAIR \
+        + k3_contrib * K3_FLOPS_PER_CONTRIBUTING_PAIR
+    k3_bound = max(k3_bytes / PEAK_BYTES, k3_ops / PEAK_F32) * 1e3
+    k3_by = "operations" if k3_ops / PEAK_F32 > k3_bytes / PEAK_BYTES \
+        else "bytes"
+    log(f"{label} K3 backward vs plain: worst row error {k3_rel:.3g} of the "
+        f"row's max, {k3_l2:.3g} in relative L2 (limits {K3_TOL:g}), "
+        f"{int(unvisited.sum())} all-zero slots equal, two launches "
+        f"bit-equal; kernel {k3_ms:.4f} ms in batches of "
+        f"{tk.BACKWARD_CHUNK} instances, clusters of {tk.BACKWARD_SPLIT} "
+        f"bands a tile, plain {k3_plain_ms:.1f} ms (one "
+        f"call), bound {k3_bound:.4f} ms ({k3_pairs} instance-pixel pairs "
+        f"replayed, {k3_contrib} of them contributing, {k3_ops} flops, "
+        f"{k3_bytes} bytes)")
+    return {
+        "instances": n_inst, "valid_instances": n_valid, "gaussians": n,
+        "max_tile_count": int(tcount.max()),
+        "K2": {"max_abs_err": k2_err, "check": "exact", "ms": k2_ms,
+               "ms_by": k2_src, "wrapper_ms": k2_wrapper_ms,
+               "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+               "bound_by": k2_by, "library_ms": None},
+        "K1": {"max_abs_err": col_err,
+               "check": "colour, depth, final T, n_contrib equal to the bit",
+               "band": band, "batch": rcfg.chunk,
+               "patch_pairs": cull_pairs, "culled_pair_share": k1_culled,
+               "ms": k1_ms, "ms_by": k1_src, "ms_by_kernel": k1_by_kernel,
+               "wrapper_ms": k1_wrapper_ms, "plain_ms": k1_plain_ms,
+               "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+        "K3": {"max_abs_err": k3_err,
+               "check": f"each row <= {K3_TOL:g} of its max and in relative "
+                        "L2, unvisited slots zero, two launches bit-equal",
+               "rel_l2_err": k3_l2, "batch": tk.BACKWARD_CHUNK,
+               "bands": tk.BACKWARD_SPLIT, "pairs_replayed": k3_pairs,
+               "pairs_contributing": k3_contrib, "ms": k3_ms,
+               "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+               "bound_by": k3_by, "library_ms": None}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1376,8 +2046,7 @@ def main():
     from saro_gs_torch.data import cameras
     from saro_gs_torch.models import field as field_mod
     from saro_gs_torch.models import gaussians as gm
-    from saro_gs_torch.ops import (binning, compositing, grid_scatter, mip,
-                                   projection)
+    from saro_gs_torch.ops import binning, mip, projection
     from saro_gs_torch.ops import tile_kernels as tk
     from saro_gs_torch.train import step as step_mod
     from tests import torch_parity as golden
@@ -1427,150 +2096,10 @@ def main():
     gy = (H + rcfg.tile_y - 1) // rcfg.tile_y
     nt = gx * gy
 
-    def stage_inputs(ts):
-        with torch.no_grad():
-            d = gm.deform(params, nets, mcfg, fstatic, ts, feat=feat)
-        active = alive * (d.state[:, 0] > render.EVAL_STATE_CUTOFF)
-        pre = projection.preprocess(
-            d.xyz, d.scaling, d.rotation, d.opacity.reshape(-1), cam, W, H,
-            rcfg.tile_x, rcfg.tile_y, sh_degree=3, shs=d.shs, active=active,
-            tight_rect=rcfg.tight_rect)
-        return d, pre
-
-    # ---- 3. K2 against its plain version ------------------------------------
-    d, pre = stage_inputs(0.5)
-    opac = d.opacity.reshape(-1)
-    offsets, tiles, rect, gattr, total = binning.expand_inputs(pre, opac)
-    n_inst = min(total, cap)
-    check(total <= cap, f"{total - cap} instances dropped at 1352x1014")
-    exp_args = (offsets, tiles, rect, gattr, n_inst, gx, gy, rcfg.tile_x,
-                rcfg.tile_y, rcfg.tight_rect)
-    kk, kg, ka = tk.expand_instances(*exp_args)
-    pk, pg, pa = tk.expand_instances_plain(*exp_args)
-    torch.cuda.synchronize()
-    check(torch.equal(kk, pk), "K2: sort keys (tile, depth) differ")
-    check(torch.equal(kg, pg), "K2: Gaussian ids differ")
-    k2_err = float((ka - pa).abs().max()) if n_inst else 0.0
-    check(torch.equal(ka.view(torch.int32), pa.view(torch.int32)),
-          f"K2: attributes differ (max abs {k2_err})")
-    ks = binning.sort_instances(kk, kg, ka, nt)
-    ps = binning.sort_instances(pk, pg, pa, nt)
-    check(torch.equal(ks[2], ps[2]) and torch.equal(ks[3], ps[3]),
-          "K2: tile_start/tile_count differ after the sort")
-    n_valid = int(ks[3].sum())
-    k2_ms, k2_wrapper_ms, k2_src, _ = call_ms(
-        lambda: tk.expand_instances(*exp_args), timing)
-    k2_plain_ms = timing.event_ms(
-        lambda: tk.expand_instances_plain(*exp_args), 5)
-    n = offsets.shape[0]
-    k2_bytes = n * (4 + 4 + 12 + 40) + n_inst * (8 + 4 + 40)
-    k2_ops = n_inst * K2_FLOPS_PER_INSTANCE
-    k2_bound = max(k2_bytes / PEAK_BYTES, k2_ops / PEAK_F32) * 1e3
-    k2_by = "operations" if k2_ops / PEAK_F32 > k2_bytes / PEAK_BYTES \
-        else "bytes"
-    log(f"K2 expand: exact match on {n_inst} instances ({n_valid} valid, "
-        f"{n} Gaussians); kernel {k2_ms:.4f} ms ({k2_src}), wrapper "
-        f"{k2_wrapper_ms:.4f} ms a call, plain {k2_plain_ms:.4f} ms, bound "
-        f"{k2_bound:.4f} ms ({k2_bytes} bytes)")
-
-    # ---- 4. K1 against its plain version ------------------------------------
-    attr_s, ids_s, tstart, tcount, _ = ks
-    kf = tk.forward_tiles(attr_s, tstart, tcount, bg, W, H, rcfg.tile_x,
-                          rcfg.tile_y, rcfg.chunk, need_aux=True)
-    kf_noaux = tk.forward_tiles(attr_s, tstart, tcount, bg, W, H,
-                                rcfg.tile_x, rcfg.tile_y, rcfg.chunk,
-                                need_aux=False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pf = compositing.forward_tiles(attr_s, tstart, tcount, bg, W, H,
-                                   rcfg.tile_x, rcfg.tile_y, need_aux=True)
-    torch.cuda.synchronize()
-    k1_plain_ms = (time.perf_counter() - t0) * 1e3
-    col_err = float((kf.color - pf.color).abs().max())
-    for name in ("color", "depth", "final_t", "n_contrib"):
-        check(torch.equal(getattr(kf, name), getattr(pf, name)),
-              f"K1: {name} differs from the plain version (colour max abs "
-              f"err {col_err})")
-    check(torch.equal(kf_noaux.color, kf.color)
-          and torch.equal(kf_noaux.depth, kf.depth)
-          and torch.equal(kf_noaux.final_t, kf.final_t),
-          "K1: need_aux=False changes the image")
-    cull_pairs, cull_kept = compositing.cull_counts(
-        attr_s, tstart, tcount, W, H, rcfg.tile_x, rcfg.tile_y)
-    k1_culled = 1.0 - cull_kept / cull_pairs
-    band = f"{rcfg.tile_x}x{tk.forward_band_rows(rcfg.tile_x, rcfg.tile_y)}"
-    log(f"K1 forward vs plain, {nt} tiles: colour, depth, final T and "
-        f"n_contrib equal to the bit; max tile count {int(tcount.max())}; "
-        f"bands of {band} pixels, batches of {rcfg.chunk}; the warp cull "
-        f"drops {cull_pairs - cull_kept} of {cull_pairs} (8x4 patch, "
-        f"instance) pairs ({100 * k1_culled:.2f}%)")
-
-    def k1_call():
-        return tk.forward_tiles(attr_s, tstart, tcount, bg, W, H,
-                                rcfg.tile_x, rcfg.tile_y, rcfg.chunk,
-                                need_aux=False)
-    k1_ms, k1_wrapper_ms, k1_src, k1_by_kernel = call_ms(k1_call, timing)
-    pairs = int(pf.n_walked.sum())
-    k1_bytes = 10 * 4 * n_valid + 8 * nt + 5 * 4 * W * H
-    k1_ops = pairs * K1_FLOPS_PER_PAIR
-    k1_bound = max(k1_bytes / PEAK_BYTES, k1_ops / PEAK_F32) * 1e3
-    k1_by = "operations" if k1_ops / PEAK_F32 > k1_bytes / PEAK_BYTES \
-        else "bytes"
-    log(f"K1 forward: {k1_ms:.4f} ms of device time a call ({k1_src}; "
-        + ", ".join(f"{k[:40]} {v:.4f}" for k, v in k1_by_kernel.items())
-        + f"), wrapper {k1_wrapper_ms:.4f} ms a call, plain "
-        f"{k1_plain_ms:.1f} ms (one call), bound {k1_bound:.4f} ms ({pairs} "
-        f"instance-pixel pairs walked, {k1_bytes} bytes)")
-
-    # ---- 5. K3 against its plain version ------------------------------------
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    d_color = torch.randn(3, H, W, generator=gen).to(dev)
-    k3_args = (attr_s, tstart, tcount, bg, kf.n_contrib, kf.color,
-               kf.final_t, d_color, W, H, rcfg.tile_x, rcfg.tile_y)
-    kb = tk.backward_tiles(*k3_args)
-    kb2 = tk.backward_tiles(*k3_args)
-    torch.cuda.synchronize()
-    check(torch.equal(kb, kb2), "K3: two launches differ")
-    t0 = time.perf_counter()
-    pb, k3_contrib = compositing.backward_tiles(*k3_args, count_pairs=True)
-    k3_contrib = int(k3_contrib)
-    k3_plain_ms = (time.perf_counter() - t0) * 1e3
-    check(torch.isfinite(kb).all(), "K3: non-finite gradients")
-    # each row against its largest entry, and in relative L2 so that the
-    # typical entries count beside the few large ones
-    k3_err, k3_rel, k3_l2 = 0.0, 0.0, 0.0
-    for r in range(compositing.GRAD_ROWS):
-        scale = float(pb[r].abs().max())
-        err = float((kb[r] - pb[r]).abs().max())
-        check(scale > 0, f"K3: plain row {r} is all zero")
-        l2 = float((kb[r] - pb[r]).double().norm() / pb[r].double().norm())
-        check(err <= K3_TOL * scale,
-              f"K3: row {r} differs by {err} (row max {scale})")
-        check(l2 <= K3_TOL, f"K3: row {r} relative L2 error {l2}")
-        k3_err = max(k3_err, err)
-        k3_rel = max(k3_rel, err / scale)
-        k3_l2 = max(k3_l2, l2)
-    unvisited = (pb == 0).all(dim=0)
-    check(not bool(kb[:, unvisited].any()),
-          "K3: a slot the replay never visits is not zero")
-    k3_ms = timing.event_ms(lambda: tk.backward_tiles(*k3_args), 10)
-    k3_pairs = int(kf.n_contrib.sum())
-    check(0 < k3_contrib <= k3_pairs, "K3: contributing pairs miscounted")
-    k3_bytes = (10 + 9) * 4 * n_valid + 8 * nt + 8 * 4 * W * H
-    k3_ops = k3_pairs * K3_FLOPS_PER_REPLAYED_PAIR \
-        + k3_contrib * K3_FLOPS_PER_CONTRIBUTING_PAIR
-    k3_bound = max(k3_bytes / PEAK_BYTES, k3_ops / PEAK_F32) * 1e3
-    k3_by = "operations" if k3_ops / PEAK_F32 > k3_bytes / PEAK_BYTES \
-        else "bytes"
-    log(f"K3 backward vs plain: worst row error {k3_rel:.3g} of the row's "
-        f"max, {k3_l2:.3g} in relative L2 (limits {K3_TOL:g}), "
-        f"{int(unvisited.sum())} all-zero slots equal, two launches "
-        f"bit-equal; kernel {k3_ms:.4f} ms in batches of "
-        f"{tk.BACKWARD_CHUNK} instances, clusters of {tk.BACKWARD_SPLIT} "
-        f"bands a tile, plain {k3_plain_ms:.1f} ms (one "
-        f"call), bound {k3_bound:.4f} ms ({k3_pairs} instance-pixel pairs "
-        f"replayed, {k3_contrib} of them contributing, {k3_ops} flops, "
-        f"{k3_bytes} bytes)")
+    # ---- 3 to 5. K2, K1 and K3 against their plain versions ---------------
+    d, pre = stage_frame(params, nets, alive, mcfg, fstatic, cam, 0.5, rcfg,
+                         feat=feat)
+    fk = frame_kernels("arena", d, pre, cap, bg, rcfg, tk, timing)
 
     # ---- 6. K4 against its plain version ------------------------------------
     # the grid gradients sample_mip's backward makes for the checkpoint's
@@ -1608,50 +2137,9 @@ def main():
     cases.append(("hot cell", hot_coords.contiguous(),
                   torch.full((npts,), float(n_sp), device=dev), dfeat,
                   (h_sp, w_sp, n_sp), True))
-    k4_err, k4_rel, k4 = 0.0, 0.0, {}
-    for name, coords, lvl, df, (h, w, n_lv), _ in cases:
-        args = (coords, lvl, df, h, w, n_lv)
-        ko = grid_scatter.scatter_mip_taps(*args)
-        ko2 = grid_scatter.scatter_mip_taps(*args)
-        po = grid_scatter.scatter_mip_taps_plain(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(ko, ko2), f"K4 {name}: two launches differ")
-        scale = float(po.abs().max())
-        err = float((ko - po).abs().max())
-        check(ko.shape == po.shape and scale > 0 and err <= 1e-5 * scale,
-              f"K4 {name}: differs by {err} (output max {scale})")
-        k4_err, k4_rel = max(k4_err, err), max(k4_rel, err / scale)
-        ms = timing.event_ms(lambda: grid_scatter.scatter_mip_taps(*args),
-                             20)
-        plain_ms = timing.event_ms(
-            lambda: grid_scatter.scatter_mip_taps_plain(*args), 5)
-        cells, wts, total = grid_scatter.mip_taps(coords, lvl, h, w, n_lv)
-
-        def library():
-            out = torch.zeros((total, c_feat), device=dev)
-            out.index_add_(0, cells.reshape(-1),
-                           (wts[:, :, None] * df[None]).reshape(-1, c_feat))
-            return out
-        lib_ms = timing.event_ms(library, 10)
-        n_taps = cells.shape[0]
-        # coords and level read once, dfeat read once, the output written
-        nbytes = npts * 8 + (npts * 4 if n_lv else 0) + npts * c_feat * 4 \
-            + c_feat * total * 4
-        ops = n_taps * npts * c_feat * K4_FLOPS_PER_TAP_CHANNEL
-        k4[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        beats_library=ms < lib_ms, taps=n_taps * npts,
-                        cells=total, bytes=nbytes, max_rel_err=err / scale,
-                        bound_ms=max(nbytes / PEAK_BYTES,
-                                     ops / PEAK_F32) * 1e3,
-                        bound_by="operations" if ops / PEAK_F32
-                        > nbytes / PEAK_BYTES else "bytes")
-        log(f"K4 scatter_mip_taps, {name} ({n_taps}x{npts} taps -> "
-            f"{c_feat}x{total}, {n_lv} levels, dfeat row stride "
-            f"{df.stride(0)}): error {err / scale:.3g} of the output's max "
-            f"(limit 1e-5), bit-equal; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, one index_add_ {lib_ms:.4f} ms "
-            f"({'kernel faster' if ms < lib_ms else 'LIBRARY FASTER'}), "
-            f"bound {k4[name]['bound_ms']:.5f} ms ({nbytes} bytes)")
+    k4 = {name: k4_check(name, coords, lvl, df, h, w, n_lv, timing)
+          for name, coords, lvl, df, (h, w, n_lv), _ in cases}
+    k4_err = max(r["max_abs_err"] for r in k4.values())
 
     # ---- 7. the render slice: the eval render sweep -------------------------
     ts_list = [0.5 + 0.49 * math.sin(i / 7) for i in range(30)]
@@ -1887,70 +2375,37 @@ def main():
     parallel, parallel_counts = parallel_phase(
         cfg, mcfg, params, nets, alive, fstatic, rcfg, tin,
         dict(phase11, info=info), dev, tk)
+    torch.cuda.empty_cache()
 
-    # ---- 14. summary --------------------------------------------------------
+    # ---- 14. the Neural3D-scale trainer --------------------------------------
+    stress, stress_counts = stress_phase(dev, tk, timing)
+
+    # ---- 15. summary --------------------------------------------------------
     k4m = k4[cases[0][0]]
+    k4_row = {"max_abs_err": k4_err,
+              "check": "<= 1e-5 of the output's max, two launches bit-equal",
+              "shape": cases[0][0],
+              **{k: k4m[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
     kernels = [
-        {"name": "expand_instances (K2)", "route": "cuda",
-         "source": "saro_gs_torch/csrc/expand.cu",
-         "replaces": "saro_gs_tpu/ops/tile_kernels.py:203",
-         "launches": train_counts["expand"],
-         "launches_trainer": trainer_counts["expand"],
-         "launches_trainer_disk": disk_counts["expand"],
-         "launches_parallel": {run: c["expand"]
+        {"name": name, "route": "cuda",
+         "source": f"saro_gs_torch/csrc/{src}", "replaces": replaces,
+         "launches": train_counts[key],
+         "launches_trainer": trainer_counts[key],
+         "launches_trainer_disk": disk_counts[key],
+         "launches_parallel": {run: c[key]
                                for run, c in parallel_counts.items()},
-         "launches_render": counts["expand"], "max_abs_err": k2_err,
-         "check": "exact", "ms": k2_ms, "ms_by": k2_src,
-         "wrapper_ms": k2_wrapper_ms,
-         "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
-        {"name": "forward_tiles (K1)", "route": "cuda",
-         "source": "saro_gs_torch/csrc/forward.cu",
-         "replaces": "saro_gs_tpu/ops/tile_kernels.py:409",
-         "launches": train_counts["forward"],
-         "launches_trainer": trainer_counts["forward"],
-         "launches_trainer_disk": disk_counts["forward"],
-         "launches_parallel": {run: c["forward"]
-                               for run, c in parallel_counts.items()},
-         "launches_render": counts["forward"], "max_abs_err": col_err,
-         "check": "colour, depth, final T, n_contrib equal to the bit",
-         "band": band, "batch": rcfg.chunk,
-         "patch_pairs": cull_pairs, "culled_pair_share": k1_culled,
-         "ms": k1_ms, "ms_by": k1_src, "ms_by_kernel": k1_by_kernel,
-         "wrapper_ms": k1_wrapper_ms,
-         "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
-        {"name": "backward_tiles (K3)", "route": "cuda",
-         "source": "saro_gs_torch/csrc/backward.cu",
-         "replaces": "saro_gs_tpu/ops/tile_kernels.py:726",
-         "launches": train_counts["backward"],
-         "launches_trainer": trainer_counts["backward"],
-         "launches_trainer_disk": disk_counts["backward"],
-         "launches_parallel": {run: c["backward"]
-                               for run, c in parallel_counts.items()},
-         "max_abs_err": k3_err,
-         "check": f"each row <= {K3_TOL:g} of its max and in relative L2, "
-                  "unvisited slots zero, two launches bit-equal",
-         "rel_l2_err": k3_l2, "batch": tk.BACKWARD_CHUNK,
-         "bands": tk.BACKWARD_SPLIT,
-         "pairs_replayed": k3_pairs, "pairs_contributing": k3_contrib,
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None},
-        {"name": "scatter_mip_taps (K4)", "route": "cuda",
-         "source": "saro_gs_torch/csrc/grid_scatter.cu",
-         "replaces": "saro_gs_tpu/ops/grid_scatter.py:50",
-         "launches": train_counts["grid_scatter"],
-         "launches_trainer": trainer_counts["grid_scatter"],
-         "launches_trainer_disk": disk_counts["grid_scatter"],
-         "launches_parallel": {run: c["grid_scatter"]
-                               for run, c in parallel_counts.items()},
-         "max_abs_err": k4_err,
-         "check": "<= 1e-5 of the output's max, two launches bit-equal",
-         "shape": cases[0][0],
-         "ms": k4m["ms"], "plain_ms": k4m["plain_ms"],
-         "bound_ms": k4m["bound_ms"], "bound_by": k4m["bound_by"],
-         "library_ms": k4m["library_ms"]},
-    ]
+         "launches_stress": stress_counts[key],
+         "launches_render": counts[key], **numbers}
+        for key, name, src, replaces, numbers in (
+            ("expand", "expand_instances (K2)", "expand.cu",
+             "saro_gs_tpu/ops/tile_kernels.py:203", fk["K2"]),
+            ("forward", "forward_tiles (K1)", "forward.cu",
+             "saro_gs_tpu/ops/tile_kernels.py:409", fk["K1"]),
+            ("backward", "backward_tiles (K3)", "backward.cu",
+             "saro_gs_tpu/ops/tile_kernels.py:726", fk["K3"]),
+            ("grid_scatter", "scatter_mip_taps (K4)", "grid_scatter.cu",
+             "saro_gs_tpu/ops/grid_scatter.py:50", k4_row))]
     print(json.dumps({"slice": {"fps": 1e3 / frame_ms, "ms_per_frame":
                                 frame_ms, "stages_ms": stages,
                                 "num_instances": [min(n_inst_seen),
@@ -1976,6 +2431,7 @@ def main():
     print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"trainer_disk": trainer_disk}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"phase": "stress", **stress}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

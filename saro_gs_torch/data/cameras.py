@@ -37,7 +37,8 @@ class Camera:
     image_path: Optional[str] = None
     cx_ratio: float = 0.0      # principal point offsets in [-0.5, 0.5]
     cy_ratio: float = 0.0
-    _image: Optional[np.ndarray] = None   # [3,H,W] in [0,1], set_image
+    # [3,H,W] float in [0,1] or uint8, set_image
+    _image: Optional[np.ndarray] = None
 
     def __post_init__(self):
         wv = math3d.world_to_view_matrix(self.R, self.T)
@@ -68,8 +69,11 @@ class Camera:
         [3, H, W] float32 in [0, 1], decoded by the native library (PIL
         where it is off or refuses the file), Lanczos-resized if needed,
         alpha composited over the background as scene/dataset.py:57-97
-        does; the image given to ``set_image`` if there is one."""
+        does; the image given to ``set_image`` if there is one (uint8
+        decoded as x / 255)."""
         if self._image is not None:
+            if self._image.dtype == np.uint8:
+                return self._image.astype(np.float32) * np.float32(1 / 255)
             return self._image
         w, h = size if size is not None else (self.width, self.height)
         bg = (1.0, 1.0, 1.0) if white_background else (0.0, 0.0, 0.0)
@@ -83,7 +87,8 @@ class Camera:
         return self._image is not None or self.image_path is not None
 
     def set_image(self, img: np.ndarray):
-        """Hold ``img`` ([3, H, W] float in [0, 1]) as the ground truth."""
+        """Hold ``img`` ([3, H, W] float in [0, 1], or uint8: a quarter of
+        the bytes, and what the loader ships) as the ground truth."""
         self._image = img
 
 

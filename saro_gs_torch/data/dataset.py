@@ -75,9 +75,9 @@ class BatchLoader:
 
     def _load_batch(self, idxs) -> CameraBatch:
         cams = [self.cameras[i] for i in idxs]
-        gt = np.stack(self._decode(cams))
-        if gt.dtype != np.uint8:
-            gt = np.clip(gt * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
+        gt = np.stack([x if x.dtype == np.uint8 else
+                       np.clip(x * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
+                       for x in self._decode(cams)])
         return CameraBatch(
             cams=stack_camera_params(cams), gt=gt,
             timestamps=np.asarray([c.timestamp for c in cams],
@@ -86,7 +86,8 @@ class BatchLoader:
 
     def _decode(self, cams: List[Camera]) -> List[np.ndarray]:
         """One native call for the batch when every view is undecoded and
-        of one size, else each camera's ``load_image``."""
+        of one size, else each camera's ``load_image``; a uint8 image
+        given to ``set_image`` as it is."""
         if (all(c._image is None and c.image_path for c in cams)
                 and len({(c.width, c.height) for c in cams}) == 1
                 and native.available()):
@@ -95,7 +96,9 @@ class BatchLoader:
                                      cams[0].width, cams[0].height, bg)
             if out is not None:
                 return list(out)
-        return [c.load_image(self.white_background) for c in cams]
+        return [c._image if c._image is not None and c._image.dtype
+                == np.uint8 else c.load_image(self.white_background)
+                for c in cams]
 
     def epoch(self) -> Iterator[CameraBatch]:
         order = np.arange(len(self.cameras))

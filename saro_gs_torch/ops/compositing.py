@@ -216,9 +216,15 @@ def composite_tiles(attr: torch.Tensor, tile_start: torch.Tensor,
         visible = (power <= 0.0) & (alpha >= ALPHA_MIN)
         keep_t = 1.0 - alpha
         rgb = torch.stack([r, g, b], dim=2)                      # [A,B,3,1]
+        # a step whose instance is visible at no pixel still walking when
+        # the block starts changes nothing but the walked counts (done
+        # pixels only grow within the block)
+        busy = (visible & ~adone[:, None, :]).any(dim=2).any(dim=0).tolist()
         for j, s in enumerate(range(b0, b0 + steps.shape[0])):
             live = slot_ok[:, j, None] & ~adone
             awalked += live
+            if not busy[j]:
+                continue
             ok = live & visible[:, j]
             test_t = aT * keep_t[:, j]
             # termination latch: the killing instance does not contribute

@@ -70,7 +70,10 @@ def event_ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int) -> dict:
     """Device ms per call of each kernel and copy that fn() launches, by
     name (cut to 80 characters), by torch.profiler over reps calls after
-    one untimed call; empty where the profiler reports no device time."""
+    one untimed call; empty where the profiler reports no device time, or
+    lost some of it (a kernel recorded a number of times that is no
+    multiple of reps: late in a long process the card's trace can drop
+    activity records)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -82,6 +85,8 @@ def device_ms(fn, reps: int) -> dict:
     for e in prof.key_averages():
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0):
+            if e.count % reps:
+                return {}
             key = e.key[:80]
             out[key] = (out.get(key, 0.0)
                         + e.self_device_time_total / reps / 1e3)

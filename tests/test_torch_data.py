@@ -24,6 +24,7 @@ from saro_gs_tpu.models import gaussians as jgm
 from tests.test_e2e_train import DURATION, _write_scene
 from tests.test_readers import DURATION as N3D_DURATION
 from tests.test_readers import neural3d_dir  # noqa: F401  (fixture)
+from tests.torch_parity import n
 
 CAM_FIELDS = ("uid", "fovx", "fovy", "width", "height", "timestamp",
               "image_name")
@@ -193,6 +194,36 @@ def test_blender_reader_and_loader_match_jax(tmp_path):
                                               getattr(y.cams, f))
     finally:
         lb.close()
+
+
+def test_held_uint8_ground_truth(tmp_path):
+    """A uint8 image given to set_image (what an in-memory scene of many
+    views holds: a quarter of float32's bytes) reaches the loader's batch
+    as it is, and load_image decodes it as x / 255 in float32, as the
+    train step does; a float image goes on being rounded to uint8."""
+    d = str(tmp_path / "s")
+    _write_scene(d, np.random.RandomState(7))
+    cams = treaders.read_blender_scene(d, duration=DURATION,
+                                       resolution=1).train_cameras[:2]
+    rng = np.random.RandomState(3)
+    u8 = (rng.uniform(0, 1, (3, cams[0].height, cams[0].width)) * 255
+          ).astype(np.uint8)
+    f32 = rng.uniform(0, 1, u8.shape).astype(np.float32)
+    cams[0].set_image(u8)
+    cams[1].set_image(f32)
+    img = cams[0].load_image()
+    assert img.dtype == np.float32
+    np.testing.assert_array_equal(
+        img, n(torch.as_tensor(u8).to(torch.float32) * (1.0 / 255.0)))
+    loader = tdataset.BatchLoader(cams, 2, shuffle=False, num_workers=1)
+    try:
+        gt = next(iter(loader)).gt
+    finally:
+        loader.close()
+    assert gt.dtype == np.uint8
+    np.testing.assert_array_equal(gt[0], u8)
+    np.testing.assert_array_equal(
+        gt[1], np.clip(f32 * 255.0 + 0.5, 0, 255).astype(np.uint8))
 
 
 def _cloud(seed, n=900, stamps=6):

@@ -55,7 +55,8 @@ def test_sources_name_no_jax():
 def test_ported_surface_is_covered():
     """Every module of the JAX package has its namesake here, so the two
     checks above reach the whole port: parallel/, utils/, prep.py and
-    native.py too."""
+    native.py too, and data/synth.py, the port of
+    scripts/make_synth_scene.py."""
     jax_pkg = os.path.join(ROOT, "saro_gs_tpu")
     theirs = set()
     for dirpath, _, files in os.walk(jax_pkg):
@@ -70,7 +71,7 @@ def test_ported_surface_is_covered():
     theirs.discard("__init__")
     assert theirs <= mine, sorted(theirs - mine)
     assert {"native", "prep", "utils", "utils.visual", "train.lpips",
-            "data.hypernerf", "data.preprocess", "parallel",
+            "data.hypernerf", "data.preprocess", "data.synth", "parallel",
             "parallel.runtime", "parallel.shard"} <= mine
 
 
