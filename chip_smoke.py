@@ -134,9 +134,48 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      train_step_core alone over 8 steps, ms per densify pass, ms per stage
      over 3 steps, the card's busy share over 5 iterations, peak memory,
      the kernels' launches over the run, the phase's seconds (limit 600);
- 15. one JSON line of results, one of each trainer phase, one of the
+ 15. the Neural3D training mode: configs/neural_3D/flame_steak.json
+     through cli.train_main and cli.test_main, only its schedule cut
+     (duration 30 of 300, 510 of 30,000 iterations, densify from 100 until
+     500, so passes at 200, 300 and 400, the opacity reset at 300, test
+     and save at 510, the base-time z prune at 501); resolution 2, planes
+     512^3 x 256, batch 4 at 1352x1014, preprocesspoints 31, densify 2,
+     the colmap reader, a black background, capacity 262,144 as the file
+     and the defaults have them.  The scene is tests/torch_n3d_scene.py's,
+     written under build/chip_smoke_n3d/ (reused when complete): build_gt(7)
+     moved in front of a 19-camera forward-facing rig (camera 00 the test
+     camera), 30 frames rendered by the port at 2704x2028 on black as
+     8-bit PNGs, poses_bounds.npy, colmap_0/sparse/0/{cameras,images}.bin
+     by llff_poses_to_colmap, per-frame points3D.bin (233,055 points in
+     frame 0 with 100 near floaters and 200 far ones, 40,000 in each later
+     frame: 121 slots free after the z prune, so the first densify pass
+     overflows); without png.h and jpeglib.h the Python paths run
+     (SARO_NATIVE=0).  Checked: (a) 540 train, 30 test and 300 val
+     cameras, the centres those of poses_bounds.npy within 1e-5, the
+     merged cloud and the counts after the preprocess and the CLI's z
+     prune equal to a numpy and scipy recount from the written clouds;
+     (b) two identical first steps equal to the bit; (c) no bad step,
+     densify at 200, 300 and 400 with counts adding up, a capacity growth
+     262,144 -> 524,288 after which every per-Gaussian tensor and both
+     Adam moments have the grown rows, the z prune once, at 501, equal to
+     a recount of deform(..., 0.0).real_xyz[:, 2] < 4.5 on the state before
+     it, the overflow doublings accounting for max_instances, nothing
+     dropped at eval, the test PSNR at 510 above the initial state's;
+     (d) K2 and K1 equal to the bit and K3 within its gates on the trained
+     test frame on black, two identical steps of the grown state equal to
+     the bit and K4 on that step's xy and xt plane gradients; (e) the
+     checkpoint reloading to the same render to the bit, cli.test_main's
+     PSNR, SSIM and MS-SSIM within 1e-6 of the trainer's eval of the same
+     state at SH degree 3, 300 val renders written.  Measured: the
+     scene's write and build seconds (reader, preprocess), the loader's
+     decode ms a batch, it/s over iterations 50 to 500, train_step_core
+     alone on the grown state, ms per densify pass and growth, peak
+     memory, the busy share over 5 iterations, test_main's seconds (the
+     phase's limit 600 s);
+ 16. one JSON line of results, one of each trainer phase, one of the
      parallel path, one of the stress phase ({"phase": "stress", ...}),
-     one of the kernels, then the card line, then the result line
+     one of the Neural3D phase ({"phase": "neural3d", ...}), one of the
+     kernels, then the card line, then the result line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Times are the card's own: read them beside the
@@ -221,6 +260,16 @@ STRESS_SCHEDULE = dict(iterations=1010, densify_from_iter=200,
                        opacity_reset_interval=600, test_iteration=1010,
                        testing_iterations=[1010], save_iterations=[1010])
 STRESS_LIMIT_S = 600
+# phase 15: the Neural3D training mode, configs/neural_3D/flame_steak.json
+# through the CLI on a scene in the Neural3D layout
+# (tests/torch_n3d_scene.py), only its schedule cut; the scene, config and
+# model (git-ignored), and the phase's own time limit
+N3D_CONFIG = os.path.join(HERE, "configs", "neural_3D", "flame_steak.json")
+N3D_DIR = os.path.join(HERE, "build", "chip_smoke_n3d")
+N3D_SCHEDULE = dict(duration=30, iterations=510, densify_from_iter=100,
+                    densify_until_iter=500, opacity_reset_interval=300,
+                    testing_iterations=[510], save_iterations=[510])
+N3D_LIMIT_S = 600
 
 
 def log(msg):
@@ -1704,39 +1753,494 @@ def stress_phase(dev, tk, timing):
         "k4": pre["k4"], "frame": fk, "phase_s": phase_s}, launches
 
 
-def stress_initial_checks(tr, timing):
-    """Phase 14 on the trainer's initial state and the run's first batch
-    (the loader's seed): two identical first steps equal to the bit, with
-    nothing dropped; K4 on the grid gradients of that step's xy and xt
-    planes (sample_mip's cotangent at iteration 1); the test views' PSNR
-    through the eval's own report.  Returns what the run is held to."""
+def neural3d_phase(dev, tk, timing):
+    """Phase 15: the Neural3D training mode on the card.
+    configs/neural_3D/flame_steak.json through cli.train_main and
+    cli.test_main, with only N3D_SCHEDULE's keys (and the paths) changed:
+    30 of 300 frames, 510 of 30,000 iterations, densify from 100 (of 500)
+    until 500 (of 5,000), so passes at 200, 300 and 400, the opacity reset
+    at 300 (of 3,000), test and save at 510; the base-time z prune then
+    runs at 501.  Everything else is the file's or the defaults: resolution
+    2, planes 512^3 x 256 of 32 channels, batch 4 at 1352x1014,
+    preprocesspoints 31, densify 2, the colmap reader, a black background,
+    capacity 262,144, max_instances presized.  The scene is
+    tests/torch_n3d_scene.py's, written under build/chip_smoke_n3d/ (19 rig
+    cameras x 30 frames of build_gt(7) at 2704x2028, per-frame clouds with
+    floaters) and read through the colmap reader; without the native
+    library's image headers the Python paths run (SARO_NATIVE=0).
+    Returns (the "neural3d" results, the kernels' launches over the run)."""
+    import signal
+
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    from saro_gs_torch import cli, native, render
     from saro_gs_torch import eval as eval_mod
-    from saro_gs_torch.models import field as field_mod
-    from saro_gs_torch.ops import grid_scatter, mip
+    from saro_gs_torch import scene as scene_mod
+    from saro_gs_torch.data import readers
+    from saro_gs_torch.models import gaussians as gm
     from saro_gs_torch.train import step as step_mod
-    cfg = tr.cfg
-    check(tr.active_sh_degree == 0, "stress: the run starts above SH 0")
-    loader = tr.scene.train_loader(cfg.batch, num_workers=2, seed=cfg.seed)
+    from saro_gs_torch.train.trainer import Trainer
+    from tests import torch_n3d_scene as n3d
+
+    def over_time(signum, frame):
+        print(f"[chip_smoke] FAIL: neural3d: the phase ran past its "
+              f"{N3D_LIMIT_S} s", file=sys.stderr, flush=True)
+        os._exit(1)
+    signal.signal(signal.SIGALRM, over_time)
+    signal.alarm(N3D_LIMIT_S)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    t_phase = t0 = time.perf_counter()
+    if not all(header_found(h) for h in ("png.h", "jpeglib.h")):
+        os.environ["SARO_NATIVE"] = "0"
+    decoder = "native" if native.available() else "PIL (SARO_NATIVE=0)"
+    root = os.path.join(N3D_DIR, "scene")
+    written = n3d.write_n3d_scene(root, dev)
+    sync()
+    write_s = time.perf_counter() - t0
+    frames_xyz = [n3d.read_points3d(os.path.join(
+        root, f"colmap_{j}", "sparse", "0", "points3D.bin"))
+        for j in range(n3d.N3D_FRAMES)]
+    recount = n3d.recount_preprocess31(frames_xyz)
+    log(f"neural3d: scene of {n3d.N3D_CAMS} cameras x {n3d.N3D_FRAMES} "
+        f"frames at {n3d.N3D_W}x{n3d.N3D_H} "
+        f"{'written' if written['written'] else 'reused'} in {write_s:.1f} s "
+        f"under {root}; clouds {[x.shape[0] for x in frames_xyz[:2]]}..., "
+        f"numpy recount (merged, preprocessed, after the z prune) "
+        f"{recount}; image decode {decoder}")
+
+    model = os.path.join(N3D_DIR, "model")
+    shutil.rmtree(model, ignore_errors=True)
+    with open(N3D_CONFIG) as f:
+        config = json.load(f)
+    config.update(N3D_SCHEDULE, source_path=os.path.join(root, "colmap_0"),
+                  model_path=model)
+    cfg_path = os.path.join(N3D_DIR, "flame_steak_510.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+
+    # wrapped for the run: the scene build timed, the count before the
+    # CLI's prune, densify passes and growths timed, the z prune held to a
+    # recount, eval renders' drops, the checks on the initial state
+    built, timed, grown, zpruned, eval_dropped, pre = {}, [], [], [], [], {}
+    originals = {"scene": scene_mod.Scene.__init__,
+                 "reader": readers.SCENE_READERS["colmap"],
+                 "preprocess": scene_mod.preprocess_points,
+                 "init": Trainer.__init__, "_densify": Trainer._densify,
+                 "grow": Trainer.grow_capacity,
+                 "zprune": Trainer._zprune_real_xyz, "run": Trainer.run,
+                 "render": eval_mod.Evaluator.render}
+
+    def timed_call(name, fn):
+        def call(*a, **k):
+            sync()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            built[name] = time.perf_counter() - t
+            return out
+        return call
+
+    def trainer_init(self, cfg, scene):
+        pre["alive_preprocessed"] = int((scene.alive > 0).sum())
+        originals["init"](self, cfg, scene)
+
+    def densify(self, *a, **k):
+        sync()
+        t = time.perf_counter()
+        out = originals["_densify"](self, *a, **k)
+        sync()
+        timed.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def grow(self, *a, **k):
+        old = self.state.alive.shape[0]
+        sync()
+        t = time.perf_counter()
+        originals["grow"](self, *a, **k)
+        sync()
+        grown.append((self.state.step, old, self.state.alive.shape[0],
+                      (time.perf_counter() - t) * 1e3))
+
+    def zprune(self):
+        st = self.state
+        with torch.no_grad():
+            real = gm.deform(st.points, st.nets, self.mcfg,
+                             self.scene.fstatic, 0.0,
+                             with_residuals=True).real_xyz
+        expect = torch.where(real[:, 2] < 4.5, torch.zeros_like(st.alive),
+                             st.alive)
+        before = int((st.alive > 0).sum())
+        originals["zprune"](self)
+        zpruned.append((st.step, before, int((self.state.alive > 0).sum()),
+                        bool(torch.equal(self.state.alive, expect))))
+
+    def eval_render(self, *a, **k):
+        out = originals["render"](self, *a, **k)
+        eval_dropped.append(out[0].num_dropped)
+        return out
+
+    def run(self, *a, **k):
+        if not pre.get("checked"):
+            pre.update(n3d_initial_checks(
+                self, recount, pre["alive_preprocessed"], root))
+            pre["checked"] = True
+            tk.reset_launches()
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        return originals["run"](self, *a, **k)
+    scene_mod.Scene.__init__ = timed_call("scene", originals["scene"])
+    readers.SCENE_READERS["colmap"] = timed_call("reader",
+                                                 originals["reader"])
+    scene_mod.preprocess_points = timed_call("preprocess",
+                                             originals["preprocess"])
+    Trainer.__init__, Trainer._densify = trainer_init, densify
+    Trainer.grow_capacity, Trainer._zprune_real_xyz = grow, zprune
+    Trainer.run, eval_mod.Evaluator.render = run, eval_render
+    t0 = time.perf_counter()
     try:
-        cams_b, gt_b, ts_b = tr._to_device(next(iter(loader)))
+        tr = cli.train_main(["-s", config["source_path"], "--config",
+                             cfg_path, "-m", model, "--device", str(dev)])
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = dict(tk.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        scene_mod.Scene.__init__ = originals["scene"]
+        readers.SCENE_READERS["colmap"] = originals["reader"]
+        scene_mod.preprocess_points = originals["preprocess"]
+        Trainer.__init__, Trainer._densify = (originals["init"],
+                                              originals["_densify"])
+        Trainer.grow_capacity = originals["grow"]
+        Trainer._zprune_real_xyz = originals["zprune"]
+        Trainer.run = originals["run"]
+        eval_mod.Evaluator.render = originals["render"]
+    cfg, st = tr.cfg, tr.state
+    hist = {h["it"]: h for h in tr.history}
+    check(st.step == cfg.iterations, f"neural3d: stopped at {st.step}")
+    check(st.bad_steps == 0 and not any("bad_step" in h for h in tr.history),
+          f"neural3d: {st.bad_steps} bad steps")
+    check(hist[1]["loss"] == pre["loss_step1"],
+          f"neural3d: iteration 1 logged loss {hist[1]['loss']}, the "
+          f"checked first step {pre['loss_step1']}")
+    check(all(hwm > 0 for _, hwm in tr.overflows)
+          and tr.rcfg.max_instances
+          == pre["max_instances"] << len(tr.overflows),
+          f"neural3d: overflow doublings {tr.overflows} do not account for "
+          f"max_instances {pre['max_instances']} -> {tr.rcfg.max_instances}")
+    its = [d["it"] for d in tr.densify_log]
+    check(its == [i for i in range(1, cfg.densify_until_iter)
+                  if i > cfg.densify_from_iter
+                  and i % cfg.densification_interval == 0],
+          f"neural3d: densify ran at {its}")
+    for d in tr.densify_log:
+        check(d["after"] == d["before"] + d["cloned"] + d["split"]
+              - d["pruned"], f"neural3d: densify counts do not add up: {d}")
+    cap0 = pre["capacity"]
+    check(grown and grown[0][1:3] == (cap0, 2 * cap0),
+          f"neural3d: no capacity growth {cap0} -> {2 * cap0}: {grown}; "
+          f"densify {tr.densify_log}")
+    rows = cap0 << len(grown)
+    k = len(gm.GaussianParams._fields)
+    per_gaussian = (list(st.points) + st.opt.mu[:k] + st.opt.nu[:k]
+                    + [st.alive, st.inv_integral, st.inv_integral_densify]
+                    + list(st.aux))
+    check(all(x.shape[0] == rows for x in per_gaussian),
+          f"neural3d: per-Gaussian rows "
+          f"{sorted({x.shape[0] for x in per_gaussian})} after "
+          f"{len(grown)} growth(s) from {cap0}")
+    z_its = [i for i in range(cfg.densify_until_iter, cfg.iterations + 1)
+             if i % 500 == 1]
+    check([z[0] for z in zpruned] == z_its and all(z[3] for z in zpruned),
+          f"neural3d: the base-time z prune {zpruned} (expected at {z_its}, "
+          "equal to the recount)")
+    check(eval_dropped and not any(eval_dropped),
+          f"neural3d: eval renders dropped instances: {eval_dropped}")
+    check(all(launches[k_] > 0 for k_ in launches),
+          f"neural3d: a kernel never launched in the run: {launches}")
+    with open(os.path.join(model,
+                           f"{cfg.iterations}_runtimeresults.json")) as f:
+        report = json.load(f)
+    check(report["PSNR"] > pre["psnr_init"],
+          f"neural3d: test PSNR {report['PSNR']} at {cfg.iterations}, "
+          f"{pre['psnr_init']} from the initial state")
+    a, b = 50, max(i for i in hist if i <= cfg.densify_until_iter)
+    dyn = (b - a) / (hist[b]["elapsed_s"] - hist[a]["elapsed_s"])
+    first, last = hist[1]["loss"], max(hist.items())[1]["loss"]
+    log(f"neural3d: {cfg.iterations} iterations in {run_s:.1f} s "
+        f"({dyn:.3f} it/s over iterations {a} to {b}), loss {first:.5f} -> "
+        f"{last:.5f}; scene built in {built['scene']:.2f} s (reader "
+        f"{built['reader']:.2f} s, preprocess {built['preprocess']:.2f} s); "
+        f"{pre['alive_preprocessed']} points after preprocesspoints 31, "
+        f"{pre['alive_start']} after the z prune; densify {tr.densify_log} "
+        f"in {[round(x, 1) for x in timed]} ms; growths (it, from, to, ms) "
+        f"{grown}; z prune (it, before, after, equal to the recount) "
+        f"{zpruned}; {tr.n_alive()} points, capacity {st.alive.shape[0]}, "
+        f"max_instances {pre['max_instances']} presized -> "
+        f"{tr.rcfg.max_instances} (doublings {tr.overflows}); test PSNR "
+        f"{pre['psnr_init']:.3f} at the start -> {report['PSNR']:.3f} (SH "
+        f"degree {tr.active_sh_degree}); peak memory {peak_gib:.2f} GiB; "
+        f"launches {launches}")
+
+    # the checkpoint renders the test frame as the trainer's state does
+    info = tr.scene.info
+    cam = info.test_cameras[len(info.test_cameras) // 2]
+    loaded = scene_mod.Scene(cfg, load_iteration=str(cfg.iterations),
+                             device=dev)
+    bg = torch.zeros(3, device=dev)
+    rcfg = cfg.raster_config()._replace(max_instances=tr.rcfg.max_instances)
+    outs = []
+    for p, n_, al, fs in ((st.points, st.nets, st.alive, tr.scene.fstatic),
+                          (loaded.params, loaded.nets, loaded.alive,
+                           loaded.fstatic)):
+        out, _ = render.test_render(cam.raster_params(dev), cam.timestamp, p,
+                                    n_, al, tr.mcfg, fs, bg, width=W,
+                                    height=H, sh_degree=cfg.sh_degree,
+                                    rcfg=rcfg)
+        check(out.num_dropped == 0, "neural3d: the check render dropped")
+        outs.append(out)
+    check(all(torch.equal(getattr(outs[0], k_), getattr(outs[1], k_))
+              for k_ in ("color", "depth", "final_t")),
+          "neural3d: the reloaded checkpoint renders differently")
+    log(f"neural3d: checkpoint {cfg.iterations} ({loaded.alive.shape[0]} "
+        f"rows) renders test view {cam.image_name} at t "
+        f"{cam.timestamp:.4f} as the trainer's state does, to the bit")
+    del loaded, outs
+
+    # cli.test_main: the test set, then the 300 spiral val views; its
+    # metrics against the trainer's eval of the same state at test_main's
+    # SH degree (the trainer's own eval at 510 renders at the active one)
+    sh_now, tr.active_sh_degree = tr.active_sh_degree, cfg.sh_degree
+    same = eval_mod.quick_test_report(tr, tr.scene.test_cameras(),
+                                      histograms=False)
+    tr.active_sh_degree = sh_now
+    t0 = time.perf_counter()
+    res = cli.test_main(["-m", model, "--iteration", str(cfg.iterations),
+                         "--device", str(dev)])
+    sync()
+    test_main_s = time.perf_counter() - t0
+    for key in ("PSNR", "SSIM", "MS-SSIM"):
+        check(abs(res[key] - same[key]) <= 1e-6 * abs(same[key]),
+              f"neural3d: test_main's {key} {res[key]} against the "
+              f"trainer's eval {same[key]}")
+    val = os.path.join(model, "val", f"ours_{cfg.iterations}", "renders")
+    n_val = len(os.listdir(val)) if os.path.isdir(val) else 0
+    check(len(info.val_cameras) == n_val == 300,
+          f"neural3d: {n_val} val renders of {len(info.val_cameras)} views")
+    log(f"neural3d: cli.test_main in {test_main_s:.1f} s: "
+        f"{json.dumps(res)}; the trainer's eval of that state at SH "
+        f"{cfg.sh_degree} "
+        + json.dumps({k_: same[k_] for k_ in ("PSNR", "SSIM", "MS-SSIM")})
+        + f"; its eval at {cfg.iterations} (SH {tr.active_sh_degree}) PSNR "
+        f"{report['PSNR']:.4f}; {n_val} val renders")
+
+    # K2, K1 and K3 on that view of the trained state, on black
+    d, pre_frame = stage_frame(st.points, st.nets, st.alive, tr.mcfg,
+                               tr.scene.fstatic, cam.raster_params(dev),
+                               cam.timestamp, rcfg)
+    fk = frame_kernels("neural3d", d, pre_frame, rcfg.max_instances, bg,
+                       rcfg, tk, timing)
+    del d, pre_frame
+
+    # the grown state: two identical steps, K4 on that step's xy and xt
+    # plane gradients, then train_step_core alone over 8 steps
+    batch = first_batch(tr)
+    step = core_step(tr, batch, st.step + 1)
+    _, taps = same_two_steps("neural3d: a step of the grown state", step, st)
+    k4 = plane_k4("neural3d", taps, f"at {rows} rows", timing)
+    del taps
+
+    def core(state):
+        state, m = step(state)
+        check(m["bad_step"] == 0 and m["dropped"] == 0,
+              f"neural3d: a train_step_core step went wrong: {m}")
+        return state
+    state = core(step_mod.clone_state(st))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        state = core(state)
+    sync()
+    core_its = 8 / (time.perf_counter() - t0)
+    del state
+
+    # the loader's decode: capture-size PNG to the training size, a batch
+    loader = tr.scene.train_loader(cfg.batch, num_workers=1)
+    try:
+        n_train = len(info.train_cameras)
+        t0 = time.perf_counter()
+        for i in range(5):
+            loader._load_batch((np.arange(cfg.batch) * 37 + i * 101)
+                               % n_train)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / 5
     finally:
         loader.close()
 
-    def first_step(state):
+    # 5 iterations of the loop under torch.profiler: the card's busy share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        tr.run(max_iterations=cfg.iterations + 5, log_every=10 ** 6)
+        sync()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / 5
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / 5
+    check(tr.state.bad_steps == 0 and tr.state.dropped_hwm == 0,
+          "neural3d: the traced iterations went wrong")
+    log(f"neural3d: train_step_core alone {core_its:.3f} it/s on the grown "
+        f"state ({rows} rows); loader decode {decode_ms:.1f} ms a batch of "
+        f"{cfg.batch} ({n3d.N3D_W}x{n3d.N3D_H} PNG -> {W}x{H}, {decoder}); "
+        f"card busy {busy_ms:.2f} ms of {traced_ms:.2f} ms an iteration "
+        "under the profiler "
+        + (f"({100 * busy_ms / traced_ms:.1f}%)" if busy_ms > 0 else
+           "(no device time reported: not measured)"))
+
+    phase_s = time.perf_counter() - t_phase
+    signal.alarm(0)
+    log(f"neural3d: the phase took {phase_s:.1f} s (limit {N3D_LIMIT_S} "
+        f"s); card {smi_line()}")
+    return {
+        "config": os.path.relpath(N3D_CONFIG, HERE),
+        "schedule": N3D_SCHEDULE, "iterations": cfg.iterations,
+        "batch": cfg.batch, "resolution": [W, H],
+        "capture": [n3d.N3D_W, n3d.N3D_H], "rig_cameras": n3d.N3D_CAMS,
+        "frames": n3d.N3D_FRAMES, "clouds": n3d.N3D_CLOUD,
+        "planes": [list(p.shape) for p in st.nets.field.planes],
+        "train_views": len(info.train_cameras),
+        "test_views": len(info.test_cameras),
+        "val_views": len(info.val_cameras), "decoder": decoder,
+        "scene_written": written["written"], "write_s": write_s,
+        "build_s": built, "recount": recount,
+        "alive_preprocessed": pre["alive_preprocessed"],
+        "alive_start": pre["alive_start"], "run_s": run_s,
+        "its_per_s_50_500": dyn, "train_step_core_its_per_s": core_its,
+        "decode_ms_per_batch": decode_ms, "densify_ms": timed,
+        "densify": tr.densify_log, "growths": grown, "zprune": zpruned,
+        "overflows": tr.overflows,
+        "max_instances": [pre["max_instances"], tr.rcfg.max_instances],
+        "points_final": tr.n_alive(), "capacity": rows,
+        "loss_first": first, "loss_last": last,
+        "psnr_init": pre["psnr_init"],
+        "eval": {k_: report[k_] for k_ in ("PSNR", "SSIM", "MS-SSIM")},
+        "test_main": {k_: res[k_] for k_ in ("PSNR", "SSIM", "MS-SSIM",
+                                             "LPIPS-alex", "FPS")},
+        "test_main_s": test_main_s, "peak_memory_gib": peak_gib,
+        "card_busy_ms_per_it": busy_ms or None, "traced_ms_per_it": traced_ms,
+        "launches": launches, "k4": k4, "frame": fk,
+        "phase_s": phase_s}, launches
+
+
+def n3d_initial_checks(tr, recount, preprocessed, root):
+    """Phase 15 on the trainer's initial state: (a) the scene: 570 cameras
+    (540 train, 30 test), their centres the poses_bounds.npy centres
+    within 1e-5, 300 val cameras, the merged cloud and the counts after
+    the preprocess and the CLI's prune equal to the numpy recount; (b) two
+    identical first steps equal to the bit; the test views' PSNR.  Returns
+    what the run is held to."""
+    from saro_gs_torch import eval as eval_mod
+    from tests import torch_n3d_scene as n3d
+    info = tr.scene.info
+    n_cams = len(info.train_cameras) + len(info.test_cameras)
+    frames = tr.cfg.duration
+    check((len(info.train_cameras), len(info.test_cameras),
+           len(info.val_cameras)) == ((n3d.N3D_CAMS - 1) * frames, frames,
+                                      300),
+          f"neural3d: {len(info.train_cameras)} train, "
+          f"{len(info.test_cameras)} test, {len(info.val_cameras)} val "
+          "cameras")
+    pb = np.load(os.path.join(root, "poses_bounds.npy"))
+    centers = pb[:, :15].reshape(-1, 3, 5)[:, :, 3]
+    err = max(float(np.abs(c.camera_center - centers[int(c.image_name[3:])])
+                    .max()) for c in info.train_cameras + info.test_cameras)
+    check(err <= 1e-5, f"neural3d: camera centres off poses_bounds by {err}")
+    merged, alive = info.point_cloud.points.shape[0], tr.n_alive()
+    check((merged, preprocessed, alive) == recount,
+          f"neural3d: merged cloud, points after preprocesspoints 31 and "
+          f"after the z prune {(merged, preprocessed, alive)}, the numpy "
+          f"recount {recount}")
+    cap = tr.state.alive.shape[0]
+    check(cap == max(tr.cfg.capacity, 1 << (preprocessed - 1).bit_length()),
+          f"neural3d: capacity {cap} for {preprocessed} points")
+    ma, _ = same_two_steps("neural3d: first step",
+                           core_step(tr, first_batch(tr), 1), tr.state)
+    psnr = eval_mod.quick_test_report(tr, tr.scene.test_cameras(),
+                                      histograms=False)["PSNR"]
+    log(f"neural3d: {n_cams} cameras and {len(info.val_cameras)} val "
+        f"cameras, centres within "
+        f"{err:.3g} of poses_bounds.npy; merged cloud {merged}; "
+        f"{preprocessed} after preprocesspoints 31, {alive} after the z "
+        f"prune (the recount {recount}); capacity {cap}; the initial state "
+        f"renders the test "
+        f"views at {psnr:.3f} dB; max_instances {tr.rcfg.max_instances} "
+        f"after the presize")
+    return {"loss_step1": ma["loss"], "psnr_init": psnr,
+            "alive_start": alive, "capacity": cap,
+            "max_instances": tr.rcfg.max_instances}
+
+
+def first_batch(tr):
+    """The run's first batch (the loader's seed) on the card."""
+    loader = tr.scene.train_loader(tr.cfg.batch, num_workers=2,
+                                   seed=tr.cfg.seed)
+    try:
+        return tr._to_device(next(iter(loader)))
+    finally:
+        loader.close()
+
+
+def core_step(tr, batch, it):
+    """step(state): train_step_core on ``batch`` as the trainer runs
+    iteration ``it`` (stage, integral flag, SH mask)."""
+    from saro_gs_torch.train import step as step_mod
+    cams_b, gt_b, ts_b = batch
+
+    def step(state):
         return step_mod.train_step_core(
             state, cams_b, gt_b, ts_b, tr.bg, tr.scene.fstatic,
-            tr._statics(), stage=tr.stage_at(1), sh_degree=cfg.sh_degree,
-            scale_integral=tr.integral_flags(1)[1],
+            tr._statics(), stage=tr.stage_at(it), sh_degree=tr.cfg.sh_degree,
+            scale_integral=tr.integral_flags(it)[1],
             sh_mask=tr._sh_mask(tr.active_sh_degree))
+    return step
 
-    def leaves_of(state):
-        return (step_mod.param_leaves(state.points, state.nets)
-                + state.opt.mu + state.opt.nu + list(state.aux))
 
-    # the first step's grid gradients, as its backward hands them to K4;
-    # a plane's call is known by its coordinates
-    state = step_mod.clone_state(tr.state)
+def state_leaves(state):
+    from saro_gs_torch.train import step as step_mod
+    return (step_mod.param_leaves(state.points, state.nets)
+            + state.opt.mu + state.opt.nu + list(state.aux))
+
+
+def same_two_steps(label, step, state0):
+    """Two steps from copies of ``state0``: equal to the bit, nothing
+    dropped, no bad step.  Returns the first one's metrics and the grid
+    gradients its backward hands K4 (``grid_taps``)."""
+    import torch
+    from saro_gs_torch.train import step as step_mod
+    (sa, ma), taps = grid_taps(step_mod.clone_state(state0), step)
+    sb, mb = step(step_mod.clone_state(state0))
+    torch.cuda.synchronize()
+    check(ma == mb, f"{label}: two identical steps report differently: "
+          f"{ma} vs {mb}")
+    check(ma["bad_step"] == 0 and ma["dropped"] == 0,
+          f"{label}: the step went wrong: {ma}")
+    leaves_a, leaves_b = state_leaves(sa), state_leaves(sb)
+    for k, (x, y) in enumerate(zip(leaves_a, leaves_b)):
+        check(torch.equal(x, y), f"{label}: leaf {k} differs between two "
+              "identical steps")
+    log(f"{label}: two identical steps from one state are equal to the bit "
+        f"({len(leaves_a)} tensors); loss {ma['loss']:.6f}")
+    return ma, taps
+
+
+def grid_taps(state, step):
+    """step(state), with the grid gradients its backward hands K4 kept:
+    (its result, {plane index: (coords, level, dfeat, h, w, n_levels)}); a
+    plane's call is known by its coordinates."""
+    import torch
+    from saro_gs_torch.ops import grid_scatter, mip
     planes = {p.data_ptr(): i for i, p in enumerate(state.nets.field.planes)}
     sampled, taps = [], {}
     sample, scatter = mip.sample_mip, grid_scatter.scatter_mip_taps
@@ -1752,33 +2256,40 @@ def stress_initial_checks(tr, timing):
         return scatter(coords, level, dfeat, h, w, n_levels)
     mip.sample_mip, grid_scatter.scatter_mip_taps = sample_rec, scatter_rec
     try:
-        sa, ma = first_step(state)
+        return step(state), taps
     finally:
         mip.sample_mip, grid_scatter.scatter_mip_taps = sample, scatter
-    sb, mb = first_step(step_mod.clone_state(tr.state))
-    torch.cuda.synchronize()
-    check(ma == mb, f"stress: two identical first steps report "
-          f"differently: {ma} vs {mb}")
-    check(ma["bad_step"] == 0 and ma["dropped"] == 0,
-          f"stress: the first step went wrong: {ma}")
-    for k, (x, y) in enumerate(zip(leaves_of(sa), leaves_of(sb))):
-        check(torch.equal(x, y), f"stress: leaf {k} differs between two "
-              "identical first steps")
-    n_leaves = len(leaves_of(sa))
-    del sa, sb
-    log(f"stress: two identical first steps from the initial state are "
-        f"equal to the bit ({n_leaves} tensors); loss {ma['loss']:.6f}")
+
+
+def plane_k4(label, taps, when, timing):
+    """K4 (k4_check) on the xy and xt planes' grid gradients of one step,
+    each sorted in 3 radix passes."""
+    from saro_gs_torch.models import field as field_mod
     k4 = {}
     for name in ("xy", "xt"):
         a, b = "xyzt".index(name[0]), "xyzt".index(name[1])
         i = field_mod.COMBS.index((a, b))
-        check(i in taps, f"stress: no grid gradient for plane {name}")
+        check(i in taps, f"{label}: no grid gradient for plane {name}")
         coords, lvl, df, h, w, n_lv = taps[i]
-        k4[name] = k4_check(f"plane {name} at iteration 1", coords, lvl, df,
-                            h, w, n_lv, timing)
+        k4[name] = k4_check(f"plane {name} {when}", coords, lvl, df, h, w,
+                            n_lv, timing)
         check(k4[name]["radix_passes"] == 3,
-              f"stress: plane {name}'s {k4[name]['cells']} cells sort in "
+              f"{label}: plane {name}'s {k4[name]['cells']} cells sort in "
               f"{k4[name]['radix_passes']} passes, not 3")
+    return k4
+
+
+def stress_initial_checks(tr, timing):
+    """Phase 14 on the trainer's initial state and the run's first batch
+    (the loader's seed): two identical first steps equal to the bit, with
+    nothing dropped; K4 on the grid gradients of that step's xy and xt
+    planes (sample_mip's cotangent at iteration 1); the test views' PSNR
+    through the eval's own report.  Returns what the run is held to."""
+    from saro_gs_torch import eval as eval_mod
+    check(tr.active_sh_degree == 0, "stress: the run starts above SH 0")
+    ma, taps = same_two_steps("stress: first step",
+                              core_step(tr, first_batch(tr), 1), tr.state)
+    k4 = plane_k4("stress", taps, "at iteration 1", timing)
     del taps
     psnr = eval_mod.quick_test_report(tr, tr.scene.test_cameras(),
                                       histograms=False)["PSNR"]
@@ -2240,21 +2751,17 @@ def main():
             state, cams, gt, ts_train, bg, fstatic, st, stage="dynamatic",
             sh_degree=3, scale_integral=True)
 
-    def leaves_of(state):
-        return (step_mod.param_leaves(state.points, state.nets)
-                + state.opt.mu + state.opt.nu + list(state.aux))
-
     # the same step from two copies of the state: equal to the bit
     sa, ma = one_step(step_mod.clone_state(state0))
     sb, mb = one_step(step_mod.clone_state(state0))
     torch.cuda.synchronize()
     check(ma == mb, f"train: two identical steps report differently: "
           f"{ma} vs {mb}")
-    for k, (x, y) in enumerate(zip(leaves_of(sa), leaves_of(sb))):
+    for k, (x, y) in enumerate(zip(state_leaves(sa), state_leaves(sb))):
         check(torch.equal(x, y), f"train: leaf {k} differs between two "
               "identical steps")
     log("train: two identical steps from one state are equal to the bit "
-        f"({len(leaves_of(sa))} tensors); loss {ma['loss']:.6f}")
+        f"({len(state_leaves(sa))} tensors); loss {ma['loss']:.6f}")
     # sa is one step ahead; one more warm-up, then the timed steps
     state, m = one_step(sa)
     all_metrics = [ma, m]
@@ -2282,7 +2789,7 @@ def main():
         plane_moved = float((state.nets.field.planes[0]
                              - nets.field.planes[0]).abs().max())
     check(moved > 0 and plane_moved > 0, "train: parameters did not move")
-    check(all(torch.isfinite(x).all() for x in leaves_of(state)),
+    check(all(torch.isfinite(x).all() for x in state_leaves(state)),
           "train: a non-finite value in the state")
     check(all(train_counts[k] > 0 for k in
               ("expand", "forward", "backward", "grid_scatter")),
@@ -2379,8 +2886,12 @@ def main():
 
     # ---- 14. the Neural3D-scale trainer --------------------------------------
     stress, stress_counts = stress_phase(dev, tk, timing)
+    torch.cuda.empty_cache()
 
-    # ---- 15. summary --------------------------------------------------------
+    # ---- 15. the Neural3D training mode ---------------------------------------
+    neural3d, n3d_counts = neural3d_phase(dev, tk, timing)
+
+    # ---- 16. summary --------------------------------------------------------
     k4m = k4[cases[0][0]]
     k4_row = {"max_abs_err": k4_err,
               "check": "<= 1e-5 of the output's max, two launches bit-equal",
@@ -2396,6 +2907,7 @@ def main():
          "launches_parallel": {run: c[key]
                                for run, c in parallel_counts.items()},
          "launches_stress": stress_counts[key],
+         "launches_neural3d": n3d_counts[key],
          "launches_render": counts[key], **numbers}
         for key, name, src, replaces, numbers in (
             ("expand", "expand_instances (K2)", "expand.cu",
@@ -2432,6 +2944,7 @@ def main():
     print(json.dumps({"trainer_disk": trainer_disk}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"phase": "stress", **stress}), flush=True)
+    print(json.dumps({"phase": "neural3d", **neural3d}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,15 +6,17 @@ by ``train/lpips.py``, whose weights resolve as the JAX package's do (a
 local npz, else the seed-0 fixture: ``LPIPS-weights`` names which; with
 ``SARO_LPIPS_FIXTURE=0`` and no npz both LPIPS entries are None); renders,
 ground truth and viridis depth (and the lifespan segmentation) as PNGs,
-written by PIL; the FPS protocol of the reference: 4 passes over the
-views, the first 10 frames of each discarded, each frame timed to a
-``torch.cuda.synchronize``.
+encoded by PIL on a few threads beside the renders; the FPS protocol of
+the reference: 4 passes over the views, the first 10 frames of each
+discarded, each frame timed to a ``torch.cuda.synchronize``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
@@ -26,6 +28,10 @@ from .render import test_render
 from .train import losses, lpips
 
 
+# render_set's PNG dumps: encoder threads, and how many dumps may wait
+DUMP_THREADS, DUMP_BACKLOG = 4, 16
+
+
 def save_png(path: str, img: np.ndarray):
     """img [3, H, W] or [H, W] float in [0, 1]."""
     from PIL import Image
@@ -35,6 +41,12 @@ def save_png(path: str, img: np.ndarray):
     else:
         arr = (np.clip(img, 0, 1) * 255).astype(np.uint8)
     Image.fromarray(arr).save(path)
+
+
+def save_depth_png(path: str, depth: np.ndarray):
+    """A depth map [H, W], stretched to its own range, as viridis."""
+    dmin, dmax = depth.min(), depth.max()
+    save_png(path, viridis((depth - dmin) / max(dmax - dmin, 1e-6)))
 
 
 def viridis(x: np.ndarray) -> np.ndarray:
@@ -108,34 +120,41 @@ class Evaluator:
 
         use_lpips = lpips.lpips_available("alex")
         psnrs, ssims, msssims, lpipss = [], [], [], []
-        for idx, cam in enumerate(cameras):
-            out, seg = self.render(cam, points, nets, alive, feat, sh_degree,
-                                   require_segment)
-            img_t = torch.clamp(out.color, 0, 1)
-            img = img_t.cpu().numpy()
-            if has_gt and cam.has_image:
-                gt = cam.load_image(cfg.white_background)
-                gt_t = torch.as_tensor(gt, device=self.device)
-                psnrs.append(float(losses.psnr(img_t, gt_t)))
-                ssims.append(float(losses.ssim(img_t, gt_t)))
-                msssims.append(float(losses.msssim(img_t, gt_t)))
-                if use_lpips:
-                    lpipss.append(float(lpips.lpips(img_t, gt_t, "alex")))
-                if idx % save_every == 0:
-                    save_png(os.path.join(out_root, "gt", f"{idx:05d}.png"),
-                             gt)
-            if idx % save_every == 0:
-                save_png(os.path.join(out_root, "renders", f"{idx:05d}.png"),
-                         img)
-                depth = out.depth.cpu().numpy()
-                dmin, dmax = depth.min(), depth.max()
-                dn = (depth - dmin) / max(dmax - dmin, 1e-6)
-                save_png(os.path.join(out_root, "depth", f"{idx:05d}.png"),
-                         viridis(dn))
-                if seg is not None:
-                    save_png(os.path.join(out_root, "segment",
-                                          f"{idx:05d}.png"),
+        # the dumps are encoded on threads (PIL's encoder and numpy run
+        # without the interpreter lock), at most DUMP_BACKLOG waiting
+        dumps = collections.deque()
+
+        def dump(fn, sub, idx, img):
+            dumps.append(pool.submit(fn, os.path.join(out_root, sub,
+                                                      f"{idx:05d}.png"), img))
+            while len(dumps) > DUMP_BACKLOG:
+                dumps.popleft().result()
+        with ThreadPoolExecutor(DUMP_THREADS) as pool:
+            for idx, cam in enumerate(cameras):
+                out, seg = self.render(cam, points, nets, alive, feat,
+                                       sh_degree, require_segment)
+                img_t = torch.clamp(out.color, 0, 1)
+                saved = idx % save_every == 0
+                if has_gt and cam.has_image:
+                    gt = cam.load_image(cfg.white_background)
+                    gt_t = torch.as_tensor(gt, device=self.device)
+                    psnrs.append(float(losses.psnr(img_t, gt_t)))
+                    ssims.append(float(losses.ssim(img_t, gt_t)))
+                    msssims.append(float(losses.msssim(img_t, gt_t)))
+                    if use_lpips:
+                        lpipss.append(float(lpips.lpips(img_t, gt_t,
+                                                        "alex")))
+                    if saved:
+                        dump(save_png, "gt", idx, gt)
+                if saved:
+                    dump(save_png, "renders", idx, img_t.cpu().numpy())
+                    dump(save_depth_png, "depth", idx,
+                         out.depth.cpu().numpy())
+                    if seg is not None:
+                        dump(save_png, "segment", idx,
                              torch.clamp(seg.color, 0, 1).cpu().numpy())
+            while dumps:
+                dumps.popleft().result()
 
         # the FPS protocol (test.py:150-163)
         fps = None

@@ -80,14 +80,31 @@ def param_shapes(net_type: str = "alex") -> Dict[str, Tuple[int, ...]]:
 
 
 def _conv(x, w, b, stride, pad):
+    if x.numel() == 0:
+        # lax.conv's output of an empty map: only its zero padding
+        k = w.shape[-1]
+        h, wd = (max((n + 2 * pad - k) // stride + 1, 0)
+                 for n in x.shape[-2:])
+        x = x.new_zeros((x.shape[0], w.shape[0], h, wd))
+        return x + b.reshape(1, -1, 1, 1)
     return F.conv2d(x, w, None, stride, pad) + b.reshape(1, -1, 1, 1)
+
+
+def _max_pool(x, k, s):
+    """F.max_pool2d, or the empty map the JAX package's VALID
+    reduce_window gives where the window does not fit (an image too small
+    for the trunk: the distance is then NaN in both packages)."""
+    if min(x.shape[-2:]) < k:
+        h, w = (max((n - k) // s + 1, 0) for n in x.shape[-2:])
+        return x.new_zeros(tuple(x.shape[:2]) + (h, w))
+    return F.max_pool2d(x, k, s)
 
 
 def _alex_features(params: Params, x) -> List[torch.Tensor]:
     feats = []
     for i, (_, _, stride, pad) in enumerate(_ALEX):
         if i in _ALEX_POOL_BEFORE:
-            x = F.max_pool2d(x, 3, 2)
+            x = _max_pool(x, 3, 2)
         x = F.relu(_conv(x, params[f"conv{i}_w"], params[f"conv{i}_b"],
                          stride, pad))
         feats.append(x)
@@ -99,7 +116,7 @@ def _vgg_features(params: Params, x) -> List[torch.Tensor]:
     ci = 0
     for spec in _VGG_CFG:
         if spec == "M":
-            x = F.max_pool2d(x, 2, 2)
+            x = _max_pool(x, 2, 2)
             continue
         x = F.relu(_conv(x, params[f"conv{ci}_w"], params[f"conv{ci}_b"],
                          1, 1))

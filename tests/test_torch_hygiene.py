@@ -46,8 +46,9 @@ def test_sources_name_no_jax():
             if f.endswith((".py", ".cu", ".cuh")):
                 with open(os.path.join(dirpath, f)) as fh:
                     assert not pat.search(fh.read()), f
-    # chip_smoke.py and the one tests module it imports
-    for f in ("chip_smoke.py", os.path.join("tests", "torch_parity.py")):
+    # chip_smoke.py and the tests modules it imports
+    for f in ("chip_smoke.py", os.path.join("tests", "torch_parity.py"),
+              os.path.join("tests", "torch_n3d_scene.py")):
         with open(os.path.join(ROOT, f)) as fh:
             assert not pat.search(fh.read()), f
 
