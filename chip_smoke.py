@@ -111,11 +111,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      widths (planes 512^3 x 256, 32 channels, batch 4 at 1352x1014,
      duration 300, capacity 262,144, max_instances 1,048,576 presized by
      3.0, max_screen_size 150, dynamic from iteration 1), only its
-     schedule cut: 1,010 iterations, densify from 200 every 100 until 900,
-     opacity reset at 600, test and save at 1,010 (the SH degree rises at
-     1,000).  The scene is saro_gs_torch/data/synth.py's, built in memory
-     and registered as chip_smoke_stress: build_gt(7) rendered on the card
-     by ring_cameras(21) (fovx 0.85), the 20 training cameras at frames
+     schedule cut: 210 iterations, densify from 50 every 50 until 200
+     (passes at 100 and 150), opacity reset at 120, test and save at 210
+     (the SH steps and the late passes are phase 16's).  The scene is
+     saro_gs_torch/data/synth.py's, built in memory and registered as
+     chip_smoke_stress: build_gt(7) rendered on the card by
+     ring_cameras(21) (fovx 0.85), the 20 training cameras at frames
      0, 20, ..., 280 of 300 (uint8), camera 0 at frames 0, 140 and 280
      the test views, 100,000 points of init_cloud(gt, 300, 100000, 7).
      Checked: (a) K4 on the first step's own grid gradients of the xy
@@ -128,13 +129,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      cli.train_main: no bad step, nothing dropped on a checked step or at
      eval, the overflow doublings accounting for the final capacity, the
      last loss logged before the opacity reset below 0.7 of the first,
-     each densify's counts adding up, SH degree 1 at the end, the test
+     each densify's counts adding up, SH degree 0 at the end, the test
      PSNR above the initial state's, the checkpoint reloading to the same
-     render to the bit.  Measured: it/s from iteration 50 to 1,000,
+     render to the bit.  Measured: it/s from iteration 50 to 200,
      train_step_core alone over 8 steps, ms per densify pass, ms per stage
      over 3 steps, the card's busy share over 5 iterations, peak memory,
      the kernels' launches over the run, the phase's seconds (limit 600);
- 15. the Neural3D training mode: configs/neural_3D/flame_steak.json
+ 15. the Neural3D training mode, in a process of its own started before
+     phase 11 and run beside phases 11 to 14 and 16 (its results are
+     joined after phase 14; a failure there fails the run, and a failed
+     run stops it): configs/neural_3D/flame_steak.json
      through cli.train_main and cli.test_main, only its schedule cut
      (duration 30 of 300, 510 of 30,000 iterations, densify from 100 until
      500, so passes at 200, 300 and 400, the opacity reset at 300, test
@@ -172,11 +176,51 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      alone on the grown state, ms per densify pass and growth, peak
      memory, the busy share over 5 iterations, test_main's seconds (the
      phase's limit 600 s);
- 16. one JSON line of results, one of each trainer phase, one of the
+ 16. the D-NeRF training mode, in a process of its own started with
+     phase 15's and run beside phases 11 to 15 (the phase's own limit
+     1,100 s): configs/dnerf/standup.json through
+     cli.train_main and cli.test_main, only its schedule cut (2,110 of
+     20,000 iterations, test and save at 2,110): the blender reader at
+     resolution 2 (400x400 from 800x800 RGBA composited over white), batch
+     4, planes 64^3 x 128 of 32 channels, static until 1,000, densify 5
+     from 500 every 100 (16 passes, 600 to 2,100), the opacity reset at
+     2,000, the SH degree stepping at 1,000 and 2,000, capacity 262,144,
+     max_instances presized, as the file and the defaults have them.  The
+     scene is tests/torch_dnerf_scene.py's, written under
+     build/chip_smoke_dnerf/ (reused when complete): build_gt(7) without
+     its floor, 150 training and 20 test frames, one hemisphere pose each
+     at radius 4, rendered by the port at 800x800 as RGBA PNGs (alpha 1 -
+     T); no points3d.ply, so the reader draws its 100,000-point random
+     init; without png.h and jpeglib.h the Python decode runs
+     (SARO_NATIVE=0).  Checked: (a) the init cloud equal to a numpy
+     recount of RandomState(666); two identical first steps equal to the
+     bit, static and dynamic, and K4 on the dynamic one's xy (64x64, 6
+     levels, 5,461 cells) and xt (64x128) plane gradients, 2 radix passes,
+     within 1e-5 of the output's largest entry; no bad step; the 16 passes'
+     counts adding up, the one at 2,100 alone with the size threshold; the
+     reset at 2,000 after the SH step to 2; SH degree 2 at the end; the
+     integral refresh at every 50th dynamic iteration; the overflow
+     doublings accounting for max_instances; nothing dropped at eval; the
+     test PSNR at 2,110 above the initial state's; the checkpoint
+     reloading to the same render to the bit; cli.test_main's PSNR, SSIM
+     and MS-SSIM within 1e-6 of the trainer's eval of the same state; K2
+     and K1 equal to the bit and K3 within its gates on the trained test
+     frame over white.  (b) The same scene and config with no presize and
+     max_instances 65,536 for 100 iterations: the overflow check doubles
+     it (Trainer.overflows non-empty, every high-water mark > 0), the final
+     max_instances 65,536 x 2^(doublings), the checks after the last
+     doubling reading nothing dropped, the last state rendering every
+     training view at the final max_instances without a drop, no bad step.
+     Measured: the scene's write and build seconds, the loader's decode ms
+     a batch, it/s over the static (50 to 1,000) and the dynamic (1,050 to
+     2,100) stage, train_step_core alone over 8 steps, ms per densify pass,
+     peak memory, the busy share over 5 iterations, run (b)'s doublings,
+     test_main's seconds;
+ 17. one JSON line of results, one of each trainer phase, one of the
      parallel path, one of the stress phase ({"phase": "stress", ...}),
      one of the Neural3D phase ({"phase": "neural3d", ...}), one of the
-     kernels, then the card line, then the result line
-     {"ok": true, "device": {...}}.
+     D-NeRF phase ({"phase": "dnerf", ...}), one of the kernels, then the
+     card line, then the result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Times are the card's own: read them beside the
 card's name and power limit printed with them.
@@ -255,10 +299,10 @@ STRESS_LOADER = "chip_smoke_stress"
 STRESS_CAMS, STRESS_INIT, STRESS_SEED = 21, 100_000, 7
 STRESS_TRAIN_FRAMES = tuple(range(0, 300, 20))
 STRESS_TEST_FRAMES = (0, 140, 280)
-STRESS_SCHEDULE = dict(iterations=1010, densify_from_iter=200,
-                       densification_interval=100, densify_until_iter=900,
-                       opacity_reset_interval=600, test_iteration=1010,
-                       testing_iterations=[1010], save_iterations=[1010])
+STRESS_SCHEDULE = dict(iterations=210, densify_from_iter=50,
+                       densification_interval=50, densify_until_iter=200,
+                       opacity_reset_interval=120, test_iteration=210,
+                       testing_iterations=[210], save_iterations=[210])
 STRESS_LIMIT_S = 600
 # phase 15: the Neural3D training mode, configs/neural_3D/flame_steak.json
 # through the CLI on a scene in the Neural3D layout
@@ -270,14 +314,39 @@ N3D_SCHEDULE = dict(duration=30, iterations=510, densify_from_iter=100,
                     densify_until_iter=500, opacity_reset_interval=300,
                     testing_iterations=[510], save_iterations=[510])
 N3D_LIMIT_S = 600
+# phase 16: the D-NeRF training mode, configs/dnerf/standup.json through
+# the CLI on a scene in the D-NeRF layout (tests/torch_dnerf_scene.py),
+# only its schedule cut (run a); then the same with max_instances left
+# small so that the overflow check doubles it (run b); the scene, configs
+# and models (git-ignored), and the phase's own time limit
+DNERF_CONFIG = os.path.join(HERE, "configs", "dnerf", "standup.json")
+DNERF_DIR = os.path.join(HERE, "build", "chip_smoke_dnerf")
+DNERF_SCHEDULE = dict(iterations=2110, testing_iterations=[2110],
+                      save_iterations=[2110])
+DNERF_DOUBLING = dict(iterations=100, presize_instances=False,
+                      max_instances=65536)
+DNERF_LIMIT_S = 1100
 
 
 def log(msg):
     print(f"[chip_smoke] {msg}", flush=True)
 
 
+# the processes this script starts (phases 15 and 16 beside phases 11 to
+# 14)
+CHILDREN = []
+
+
+def stop_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def fail(msg):
     print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
+    stop_children()
     sys.exit(1)
 
 
@@ -1518,6 +1587,7 @@ def stress_phase(dev, tk, timing):
     def over_time(signum, frame):
         print(f"[chip_smoke] FAIL: stress: the phase ran past its "
               f"{STRESS_LIMIT_S} s", file=sys.stderr, flush=True)
+        stop_children()
         os._exit(1)
     signal.signal(signal.SIGALRM, over_time)
     signal.alarm(STRESS_LIMIT_S)
@@ -1533,7 +1603,8 @@ def stress_phase(dev, tk, timing):
     shutil.rmtree(STRESS_DIR, ignore_errors=True)
     os.makedirs(STRESS_DIR)
     config.update(STRESS_SCHEDULE, loader=STRESS_LOADER)
-    cfg_path = os.path.join(STRESS_DIR, "stress_szcap_1010.json")
+    cfg_path = os.path.join(STRESS_DIR, f"stress_szcap_"
+                            f"{STRESS_SCHEDULE['iterations']}.json")
     with open(cfg_path, "w") as f:
         json.dump(config, f)
     model = os.path.join(STRESS_DIR, "model")
@@ -1616,7 +1687,7 @@ def stress_phase(dev, tk, timing):
             check(d["after"] == d["before"] + d["cloned"] + d["split"]
                   - d["pruned"], f"stress: densify counts do not add up: "
                   f"{d}")
-        check(tr.active_sh_degree == 1,
+        check(tr.active_sh_degree == 0,
               f"stress: SH degree {tr.active_sh_degree} after "
               f"{cfg.iterations} iterations")
         check(all(launches[k] > 0 for k in launches),
@@ -1739,7 +1810,7 @@ def stress_phase(dev, tk, timing):
         "train_views": len(info.train_cameras),
         "test_views": len(info.test_cameras), "init_points": STRESS_INIT,
         "gt_bytes": int(gt_gb * 1e9), "scene_s": scene_s, "run_s": run_s,
-        "its_per_s_50_1000": dyn, "train_step_core_its_per_s": core_its,
+        "its_per_s_from_50": dyn, "train_step_core_its_per_s": core_its,
         "stages_ms": stages, "densify_ms": timed, "densify": tr.densify_log,
         "overflows": tr.overflows,
         "max_instances": [pre["max_instances"], tr.rcfg.max_instances],
@@ -1785,6 +1856,7 @@ def neural3d_phase(dev, tk, timing):
     def over_time(signum, frame):
         print(f"[chip_smoke] FAIL: neural3d: the phase ran past its "
               f"{N3D_LIMIT_S} s", file=sys.stderr, flush=True)
+        stop_children()
         os._exit(1)
     signal.signal(signal.SIGALRM, over_time)
     signal.alarm(N3D_LIMIT_S)
@@ -2134,6 +2206,490 @@ def neural3d_phase(dev, tk, timing):
         "phase_s": phase_s}, launches
 
 
+def dnerf_phase(dev, tk, timing):
+    """Phase 16: the D-NeRF training mode on the card.  (a)
+    configs/dnerf/standup.json through cli.train_main and cli.test_main,
+    with only DNERF_SCHEDULE's keys (and the paths) changed: 2,110 of
+    20,000 iterations, test and save at 2,110.  Everything else is the
+    file's or the defaults: the blender reader at resolution 2 (400x400
+    from 800x800 RGBA) over white, batch 4, planes 64^3 x 128 of 32
+    channels, densify 5 from 500 every 100, the opacity reset every 2,000,
+    static until 1,000, duration 150, capacity 262,144, max_instances
+    presized, the learning rates of the real run.  (b) The same scene and
+    config with DNERF_DOUBLING: no presize, max_instances 65,536, 100
+    iterations, so that the overflow check doubles it.  The scene is
+    tests/torch_dnerf_scene.py's, written under build/chip_smoke_dnerf/
+    (150 training and 20 test frames of 800x800 RGBA rendered by the port,
+    no points3d.ply: the reader draws its random init); without the
+    native library's image headers the Python decode runs
+    (SARO_NATIVE=0).  Returns (the "dnerf" results, the kernels' launches
+    over run a)."""
+    import signal
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from saro_gs_torch import cli, native, render
+    from saro_gs_torch import eval as eval_mod
+    from saro_gs_torch import scene as scene_mod
+    from saro_gs_torch.data import readers
+    from saro_gs_torch.train import step as step_mod
+    from saro_gs_torch.train.trainer import Trainer
+    from tests import torch_dnerf_scene as dnerf
+
+    def over_time(signum, frame):
+        print(f"[chip_smoke] FAIL: dnerf: the phase ran past its "
+              f"{DNERF_LIMIT_S} s", file=sys.stderr, flush=True)
+        stop_children()
+        os._exit(1)
+    signal.signal(signal.SIGALRM, over_time)
+    signal.alarm(DNERF_LIMIT_S)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    t_phase = t0 = time.perf_counter()
+    if not all(header_found(h) for h in ("png.h", "jpeglib.h")):
+        os.environ["SARO_NATIVE"] = "0"
+    decoder = "native" if native.available() else "PIL (SARO_NATIVE=0)"
+    root = os.path.join(DNERF_DIR, "scene")
+    written = dnerf.write_dnerf_scene(root, dev)
+    sync()
+    write_s = time.perf_counter() - t0
+    full = dnerf.FULL
+    log(f"dnerf: scene of {full['train']} training and {full['test']} test "
+        f"frames at {full['width']}x{full['height']} RGBA "
+        f"{'written' if written['written'] else 'reused'} in {write_s:.1f} "
+        f"s under {root}; image decode {decoder}")
+
+    def config_file(name, extra, model):
+        with open(DNERF_CONFIG) as f:
+            config = json.load(f)
+        config.update(extra, source_path=root, model_path=model)
+        path = os.path.join(DNERF_DIR, name)
+        with open(path, "w") as f:
+            json.dump(config, f)
+        return path
+
+    # ---- run (a): the schedule to 2,110 ----------------------------------
+    model = os.path.join(DNERF_DIR, "model")
+    shutil.rmtree(model, ignore_errors=True)
+    cfg_path = config_file("standup_2110.json", DNERF_SCHEDULE, model)
+    # wrapped for the run: the scene build timed, each densify attempt
+    # timed with its size flag, the refreshes and resets recorded with the
+    # SH degree, eval renders' drops, the checks on the initial state
+    built, passes, refreshes, resets, eval_dropped, pre = ({}, [], [], [],
+                                                          [], {})
+    originals = {"scene": scene_mod.Scene.__init__,
+                 "_densify": Trainer._densify,
+                 "refresh": Trainer._integral_refresh,
+                 "reset": Trainer._reset_opacity, "run": Trainer.run,
+                 "render": eval_mod.Evaluator.render}
+
+    def scene_init(self, *a, **k):
+        sync()
+        t = time.perf_counter()
+        originals["scene"](self, *a, **k)
+        sync()
+        built.setdefault("scene", time.perf_counter() - t)
+
+    def densify(self, size):
+        sync()
+        t = time.perf_counter()
+        out = originals["_densify"](self, size)
+        sync()
+        passes.append((self.state.step, size,
+                       (time.perf_counter() - t) * 1e3))
+        return out
+
+    def refresh(self, use):
+        refreshes.append(self.state.step + 1)
+        return originals["refresh"](self, use)
+
+    def reset(self):
+        resets.append((self.state.step, self.active_sh_degree))
+        return originals["reset"](self)
+
+    def eval_render(self, *a, **k):
+        out = originals["render"](self, *a, **k)
+        eval_dropped.append(out[0].num_dropped)
+        return out
+
+    def run(self, *a, **k):
+        if not pre:
+            pre.update(dnerf_initial_checks(self, timing))
+            tk.reset_launches()
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        return originals["run"](self, *a, **k)
+    scene_mod.Scene.__init__, Trainer._densify = scene_init, densify
+    Trainer._integral_refresh, Trainer._reset_opacity = refresh, reset
+    Trainer.run, eval_mod.Evaluator.render = run, eval_render
+    t0 = time.perf_counter()
+    try:
+        tr = cli.train_main(["-s", root, "--config", cfg_path, "-m", model,
+                             "--device", str(dev)])
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = dict(tk.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        scene_mod.Scene.__init__ = originals["scene"]
+        Trainer._densify = originals["_densify"]
+        Trainer._integral_refresh = originals["refresh"]
+        Trainer._reset_opacity = originals["reset"]
+        Trainer.run = originals["run"]
+        eval_mod.Evaluator.render = originals["render"]
+    cfg, st = tr.cfg, tr.state
+    hist = {h["it"]: h for h in tr.history}
+    check(st.step == cfg.iterations, f"dnerf: stopped at {st.step}")
+    check(st.bad_steps == 0 and not any("bad_step" in h for h in tr.history),
+          f"dnerf: {st.bad_steps} bad steps")
+    check(hist[1]["loss"] == pre["loss_step1"],
+          f"dnerf: iteration 1 logged loss {hist[1]['loss']}, the checked "
+          f"first step {pre['loss_step1']}")
+    pass_its = [i for i in range(1, cfg.iterations + 1)
+                if cfg.densify_from_iter < i < cfg.densify_until_iter
+                and i % cfg.densification_interval == 0]
+    its = [d["it"] for d in tr.densify_log]
+    check(its == pass_its and len(its) == 16,
+          f"dnerf: densify ran at {its}, expected {pass_its}")
+    for d in tr.densify_log:
+        check(d["after"] == d["before"] + d["cloned"] + d["split"]
+              - d["pruned"], f"dnerf: densify counts do not add up: {d}")
+    # one entry an iteration (a pass that overflows runs again after the
+    # growth)
+    sizes = sorted({i: size for i, size, _ in passes}.items())
+    check(sizes == [(i, i > cfg.opacity_reset_interval) for i in pass_its]
+          and sum(size for _, size in sizes) == 1,
+          f"dnerf: the passes' size thresholds {sizes}")
+    check(resets == [(cfg.opacity_reset_interval, 2)],
+          f"dnerf: opacity resets (it, SH degree) {resets}, expected one at "
+          f"{cfg.opacity_reset_interval} after the SH step to 2")
+    check(tr.active_sh_degree == 2,
+          f"dnerf: SH degree {tr.active_sh_degree} after {cfg.iterations}")
+    refresh_its = [i for i in range(cfg.static_iteration + 1,
+                                    cfg.iterations + 1) if i % 50 == 0]
+    check(refreshes == refresh_its,
+          f"dnerf: integral refreshes at {refreshes}, expected "
+          f"{refresh_its}")
+    check(all(hwm > 0 for _, hwm in tr.overflows)
+          and tr.rcfg.max_instances
+          == pre["max_instances"] << len(tr.overflows),
+          f"dnerf: overflow doublings {tr.overflows} do not account for "
+          f"max_instances {pre['max_instances']} -> {tr.rcfg.max_instances}")
+    check(eval_dropped and not any(eval_dropped),
+          f"dnerf: eval renders dropped instances: {eval_dropped}")
+    check(all(launches[k_] > 0 for k_ in launches),
+          f"dnerf: a kernel never launched in the run: {launches}")
+    with open(os.path.join(model,
+                           f"{cfg.iterations}_runtimeresults.json")) as f:
+        report = json.load(f)
+    check(report["PSNR"] > pre["psnr_init"],
+          f"dnerf: test PSNR {report['PSNR']} at {cfg.iterations}, "
+          f"{pre['psnr_init']} from the initial state")
+    a, b = 50, cfg.static_iteration
+    static_its = (b - a) / (hist[b]["elapsed_s"] - hist[a]["elapsed_s"])
+    c, e = cfg.static_iteration + 50, max(hist)
+    dynamic_its = (e - c) / (hist[e]["elapsed_s"] - hist[c]["elapsed_s"])
+    first, last = hist[1]["loss"], max(hist.items())[1]["loss"]
+    densify_ms = [round(ms, 1) for _, _, ms in passes]
+    log(f"dnerf: {cfg.iterations} iterations in {run_s:.1f} s "
+        f"({static_its:.3f} it/s over iterations {a} to {b}, static; "
+        f"{dynamic_its:.3f} it/s over {c} to {e}, dynamic), loss "
+        f"{first:.5f} -> {last:.5f}; scene built in {built['scene']:.2f} s; "
+        f"densify {tr.densify_log} in {densify_ms} ms (the pass at "
+        f"{[i for i, s in sizes if s]} with the size threshold); opacity "
+        f"reset (it, SH degree) {resets}; integral refreshes "
+        f"{refreshes[0]}..{refreshes[-1]} ({len(refreshes)}); "
+        f"{tr.n_alive()} points, capacity {st.alive.shape[0]}, "
+        f"max_instances {pre['max_instances']} presized -> "
+        f"{tr.rcfg.max_instances} (doublings {tr.overflows}); test PSNR "
+        f"{pre['psnr_init']:.3f} at the start -> {report['PSNR']:.3f} (SH "
+        f"degree {tr.active_sh_degree}); peak memory {peak_gib:.2f} GiB; "
+        f"launches {launches}")
+
+    # the checkpoint renders the test frame as the trainer's state does
+    info = tr.scene.info
+    cam = info.test_cameras[len(info.test_cameras) // 2]
+    width, height = cam.width, cam.height
+    loaded = scene_mod.Scene(cfg, load_iteration=str(cfg.iterations),
+                             device=dev)
+    bg = torch.ones(3, device=dev)
+    rcfg = cfg.raster_config()._replace(max_instances=tr.rcfg.max_instances)
+    outs = []
+    for p, n_, al, fs in ((st.points, st.nets, st.alive, tr.scene.fstatic),
+                          (loaded.params, loaded.nets, loaded.alive,
+                           loaded.fstatic)):
+        out, _ = render.test_render(cam.raster_params(dev), cam.timestamp, p,
+                                    n_, al, tr.mcfg, fs, bg, width=width,
+                                    height=height, sh_degree=cfg.sh_degree,
+                                    rcfg=rcfg)
+        check(out.num_dropped == 0, "dnerf: the check render dropped")
+        outs.append(out)
+    check(all(torch.equal(getattr(outs[0], k_), getattr(outs[1], k_))
+              for k_ in ("color", "depth", "final_t")),
+          "dnerf: the reloaded checkpoint renders differently")
+    log(f"dnerf: checkpoint {cfg.iterations} ({loaded.alive.shape[0]} rows) "
+        f"renders test view {cam.image_name} at t {cam.timestamp:.4f} as "
+        f"the trainer's state does, to the bit")
+    del loaded, outs
+
+    # cli.test_main against the trainer's eval of the same state at
+    # test_main's SH degree
+    sh_now, tr.active_sh_degree = tr.active_sh_degree, cfg.sh_degree
+    same = eval_mod.quick_test_report(tr, tr.scene.test_cameras(),
+                                      histograms=False)
+    tr.active_sh_degree = sh_now
+    t0 = time.perf_counter()
+    res = cli.test_main(["-m", model, "--iteration", str(cfg.iterations),
+                         "--device", str(dev)])
+    sync()
+    test_main_s = time.perf_counter() - t0
+    for key in ("PSNR", "SSIM", "MS-SSIM"):
+        check(abs(res[key] - same[key]) <= 1e-6 * abs(same[key]),
+              f"dnerf: test_main's {key} {res[key]} against the trainer's "
+              f"eval {same[key]}")
+    check(res["num_views"] == len(info.test_cameras),
+          f"dnerf: test_main rendered {res['num_views']} views")
+    log(f"dnerf: cli.test_main in {test_main_s:.1f} s: {json.dumps(res)}; "
+        f"the trainer's eval of that state at SH {cfg.sh_degree} "
+        + json.dumps({k_: same[k_] for k_ in ("PSNR", "SSIM", "MS-SSIM")}))
+
+    # K2, K1 and K3 on that view of the trained state, over white
+    d, pre_frame = stage_frame(st.points, st.nets, st.alive, tr.mcfg,
+                               tr.scene.fstatic, cam.raster_params(dev),
+                               cam.timestamp, rcfg, width=width,
+                               height=height)
+    fk = frame_kernels("dnerf", d, pre_frame, rcfg.max_instances, bg, rcfg,
+                       tk, timing, width=width, height=height)
+    del d, pre_frame
+
+    # train_step_core alone over 8 dynamic steps of the trained state
+    step = core_step(tr, first_batch(tr), st.step + 1)
+
+    def core(state):
+        state, m = step(state)
+        check(m["bad_step"] == 0 and m["dropped"] == 0,
+              f"dnerf: a train_step_core step went wrong: {m}")
+        return state
+    state = core(step_mod.clone_state(st))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        state = core(state)
+    sync()
+    core_its = 8 / (time.perf_counter() - t0)
+    with timing.record() as rec:
+        for _ in range(3):
+            state = core(state)
+    stages = {k: v / 3 for k, v in rec.stages().items()}
+    del state
+
+    # the loader's decode: 800x800 RGBA PNG to 400x400 over white, a batch
+    loader = tr.scene.train_loader(cfg.batch, num_workers=1)
+    try:
+        n_train = len(info.train_cameras)
+        t0 = time.perf_counter()
+        for i in range(5):
+            loader._load_batch((np.arange(cfg.batch) * 37 + i * 11)
+                               % n_train)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / 5
+    finally:
+        loader.close()
+
+    # 5 iterations of the loop under torch.profiler: the card's busy share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        tr.run(max_iterations=cfg.iterations + 5, log_every=10 ** 6)
+        sync()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / 5
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / 5
+    check(tr.state.bad_steps == 0 and tr.state.dropped_hwm == 0,
+          "dnerf: the traced iterations went wrong")
+    log(f"dnerf: train_step_core alone {core_its:.3f} it/s; ms per step by "
+        "stage " + json.dumps({k: round(v, 3) for k, v in stages.items()})
+        + f" (sum {sum(stages.values()):.2f}); loader decode "
+        f"{decode_ms:.1f} ms a batch of {cfg.batch} ({full['width']}x"
+        f"{full['height']} RGBA PNG -> {width}x{height}, {decoder}); card "
+        f"busy {busy_ms:.2f} ms of {traced_ms:.2f} ms an iteration under "
+        "the profiler "
+        + (f"({100 * busy_ms / traced_ms:.1f}%)" if busy_ms > 0 else
+           "(no device time reported: not measured)"))
+    planes = [list(p.shape) for p in st.nets.field.planes]
+    densify_log, overflows = tr.densify_log, tr.overflows
+    sh_degree = tr.active_sh_degree
+    n_points, capacity = tr.n_alive(), st.alive.shape[0]
+    del tr, st
+    torch.cuda.empty_cache()
+
+    # ---- run (b): max_instances left at 65,536 ---------------------------
+    doubling = dnerf_doubling(root, config_file, dev)
+
+    phase_s = time.perf_counter() - t_phase
+    signal.alarm(0)
+    log(f"dnerf: the phase took {phase_s:.1f} s (limit {DNERF_LIMIT_S} s); "
+        f"card {smi_line()}")
+    return {
+        "config": os.path.relpath(DNERF_CONFIG, HERE),
+        "schedule": DNERF_SCHEDULE, "iterations": cfg.iterations,
+        "batch": cfg.batch, "resolution": [width, height],
+        "source": [full["width"], full["height"]], "planes": planes,
+        "train_views": len(info.train_cameras),
+        "test_views": len(info.test_cameras), "decoder": decoder,
+        "scene_written": written["written"], "write_s": write_s,
+        "build_s": built["scene"], "init_points": pre["init_points"],
+        "run_s": run_s, "its_per_s_static_50_1000": static_its,
+        "its_per_s_dynamic_1050_2100": dynamic_its,
+        "train_step_core_its_per_s": core_its, "stages_ms": stages,
+        "decode_ms_per_batch": decode_ms, "densify_ms": densify_ms,
+        "densify": densify_log, "size_thresholded": [i for i, s in sizes
+                                                     if s],
+        "resets": resets, "refreshes": len(refreshes), "sh_degree": sh_degree,
+        "overflows": overflows,
+        "max_instances": [pre["max_instances"], rcfg.max_instances],
+        "points_final": n_points, "capacity": capacity,
+        "loss_first": first, "loss_last": last,
+        "psnr_init": pre["psnr_init"],
+        "eval": {k_: report[k_] for k_ in ("PSNR", "SSIM", "MS-SSIM")},
+        "test_main": {k_: res[k_] for k_ in ("PSNR", "SSIM", "MS-SSIM",
+                                             "LPIPS-alex", "FPS")},
+        "test_main_s": test_main_s, "peak_memory_gib": peak_gib,
+        "card_busy_ms_per_it": busy_ms or None, "traced_ms_per_it": traced_ms,
+        "launches": launches, "k4": pre["k4"], "frame": fk,
+        "doubling": doubling, "phase_s": phase_s}, launches
+
+
+def dnerf_initial_checks(tr, timing):
+    """Phase 16 on the trainer's initial state and the run's first batch:
+    the init cloud equal to a numpy recount of the reader's
+    RandomState(666) draw, every point alive, the capacity 262,144; two
+    identical first steps equal to the bit, static (iteration 1) and
+    dynamic (the stage of iteration 1,001), nothing dropped; K4 on the
+    dynamic step's own grid gradients of the xy plane (64x64, 6 levels,
+    5,461 cells) and the xt plane (64x128, 8,192 cells), both sorted in 2
+    radix passes; the test views' PSNR.  Returns what the run is held
+    to."""
+    from saro_gs_torch import eval as eval_mod
+    from tests import torch_dnerf_scene as dnerf
+    pc = tr.scene.info.point_cloud
+    pts, cols, times = dnerf.recount_random_init()
+    check(np.array_equal(pc.points, pts) and np.array_equal(pc.colors, cols)
+          and np.array_equal(pc.times, times),
+          "dnerf: the init cloud differs from the numpy recount of "
+          "RandomState(666)")
+    alive, cap = tr.n_alive(), tr.state.alive.shape[0]
+    check(alive == dnerf.INIT_POINTS and cap == tr.cfg.capacity == 262144,
+          f"dnerf: {alive} points alive in {cap} rows")
+    check(tr.active_sh_degree == 0, "dnerf: the run starts above SH 0")
+    batch = first_batch(tr)
+    ma, _ = same_two_steps("dnerf: first static step",
+                           core_step(tr, batch, 1), tr.state)
+    _, taps = same_two_steps(
+        "dnerf: first dynamic step",
+        core_step(tr, batch, tr.cfg.static_iteration + 1), tr.state)
+    k4 = plane_k4("dnerf", taps, "at the first dynamic step", timing,
+                  passes=2)
+    del taps
+    psnr = eval_mod.quick_test_report(tr, tr.scene.test_cameras(),
+                                      histograms=False)["PSNR"]
+    log(f"dnerf: init cloud of {pc.points.shape[0]} points equal to the "
+        f"numpy recount; {alive} alive in {cap} rows; the initial state "
+        f"renders the test views at {psnr:.3f} dB; max_instances "
+        f"{tr.rcfg.max_instances} after the presize")
+    return {"loss_step1": ma["loss"], "k4": k4, "psnr_init": psnr,
+            "init_points": pc.points.shape[0], "capacity": cap,
+            "max_instances": tr.rcfg.max_instances}
+
+
+def dnerf_doubling(root, config_file, dev):
+    """Phase 16's run (b): standup.json with DNERF_DOUBLING (no presize,
+    max_instances 65,536, 100 iterations, all in the static stage) through
+    cli.train_main.  Checked: no bad step; Trainer.overflows non-empty,
+    every high-water mark > 0, each at an overflow check; the final
+    max_instances 65,536 x 2^(doublings); every check after the last
+    doubling reading nothing dropped (at least one); the last state
+    rendering every training view (the static stage's render) at the
+    final max_instances, dropping nothing.  Returns the numbers."""
+    import torch
+    from saro_gs_torch import cli, render
+    from saro_gs_torch.train.trainer import Trainer
+    model = os.path.join(DNERF_DIR, "model_doubling")
+    shutil.rmtree(model, ignore_errors=True)
+    cfg_path = config_file("standup_doubling.json", DNERF_DOUBLING, model)
+    checks = []
+    control = Trainer._density_control
+
+    def density_control(self, it, stage):
+        control(self, it, stage)
+        # what the overflow check reads right after this call
+        if it % self.cfg.overflow_check_every == 0:
+            checks.append((it, int(self.state.dropped_hwm)))
+    Trainer._density_control = density_control
+    t0 = time.perf_counter()
+    try:
+        tr = cli.train_main(["-s", root, "--config", cfg_path, "-m", model,
+                             "--device", str(dev), "--quiet"])
+        torch.cuda.synchronize()
+    finally:
+        Trainer._density_control = control
+    run_s = time.perf_counter() - t0
+    cfg, st = tr.cfg, tr.state
+    start = DNERF_DOUBLING["max_instances"]
+    check(st.step == cfg.iterations and not cfg.presize_instances,
+          f"dnerf (b): stopped at {st.step}")
+    check(st.bad_steps == 0 and not any("bad_step" in h for h in tr.history),
+          f"dnerf (b): {st.bad_steps} bad steps")
+    check(tr.overflows and all(type(h) is int and h > 0
+                               for _, h in tr.overflows),
+          f"dnerf (b): overflow doublings {tr.overflows}")
+    check(tr.overflows == [c for c in checks if c[1] > 0],
+          f"dnerf (b): doublings {tr.overflows} against the checks "
+          f"{checks}")
+    check(tr.rcfg.max_instances == start << len(tr.overflows),
+          f"dnerf (b): max_instances {tr.rcfg.max_instances} after "
+          f"{len(tr.overflows)} doublings of {start}")
+    last = tr.overflows[-1][0]
+    after = [h for i, h in checks if i > last]
+    check(after and not any(after),
+          f"dnerf (b): checks after the last doubling at {last}: {checks}")
+    bg = torch.ones(3, device=dev)
+    dropped = []
+    with torch.no_grad():
+        for cam in tr.scene.info.train_cameras:
+            pkg = render.train_render(
+                cam.raster_params(dev), cam.timestamp, st.points, st.nets,
+                st.alive, tr.mcfg, tr.scene.fstatic, bg, width=cam.width,
+                height=cam.height, stage="static", sh_degree=0,
+                rcfg=tr.rcfg)
+            dropped.append((pkg.out.num_dropped, pkg.out.num_instances))
+    check(not any(d for d, _ in dropped),
+          f"dnerf (b): the last state drops instances at max_instances "
+          f"{tr.rcfg.max_instances}: {[d for d in dropped if d[0]]}")
+    doublings = [(it, hwm, start << (k + 1))
+                 for k, (it, hwm) in enumerate(tr.overflows)]
+    hist = {h["it"]: h for h in tr.history}
+    b = max(hist)
+    its = (b - 50) / (hist[b]["elapsed_s"] - hist[50]["elapsed_s"])
+    most = max(n for _, n in dropped)
+    log(f"dnerf (b): {cfg.iterations} iterations from max_instances {start} "
+        f"without a presize in {run_s:.1f} s ({its:.3f} it/s over 50 to "
+        f"{b}); doublings (it, most dropped, new max_instances) "
+        f"{doublings}; checks after the last one {after}; the last state "
+        f"renders the {len(dropped)} training views with up to {most} "
+        f"instances, none dropped; loss {hist[1]['loss']:.5f} -> "
+        f"{hist[b]['loss']:.5f}")
+    return {"iterations": cfg.iterations, "start": start,
+            "doublings": doublings, "checks": checks,
+            "max_instances": tr.rcfg.max_instances,
+            "views_most_instances": most, "its_per_s_50_on": its,
+            "run_s": run_s, "loss_first": hist[1]["loss"],
+            "loss_last": hist[b]["loss"]}
+
+
 def n3d_initial_checks(tr, recount, preprocessed, root):
     """Phase 15 on the trainer's initial state: (a) the scene: 570 cameras
     (540 train, 30 test), their centres the poses_bounds.npy centres
@@ -2261,9 +2817,9 @@ def grid_taps(state, step):
         mip.sample_mip, grid_scatter.scatter_mip_taps = sample, scatter
 
 
-def plane_k4(label, taps, when, timing):
+def plane_k4(label, taps, when, timing, passes=3):
     """K4 (k4_check) on the xy and xt planes' grid gradients of one step,
-    each sorted in 3 radix passes."""
+    each sorted in ``passes`` radix passes."""
     from saro_gs_torch.models import field as field_mod
     k4 = {}
     for name in ("xy", "xt"):
@@ -2273,9 +2829,9 @@ def plane_k4(label, taps, when, timing):
         coords, lvl, df, h, w, n_lv = taps[i]
         k4[name] = k4_check(f"plane {name} {when}", coords, lvl, df, h, w,
                             n_lv, timing)
-        check(k4[name]["radix_passes"] == 3,
+        check(k4[name]["radix_passes"] == passes,
               f"{label}: plane {name}'s {k4[name]['cells']} cells sort in "
-              f"{k4[name]['radix_passes']} passes, not 3")
+              f"{k4[name]['radix_passes']} passes, not {passes}")
     return k4
 
 
@@ -2354,9 +2910,10 @@ def k4_check(name, coords, lvl, df, h, w, n_lv, timing):
 
 
 def stage_frame(params, nets, alive, mcfg, fstatic, cam, ts, rcfg,
-                feat=None):
-    """One frame's deformed Gaussians and their preprocess at 1352x1014,
-    as the eval render makes them: (deformed, preprocessed)."""
+                feat=None, width=W, height=H):
+    """One frame's deformed Gaussians and their preprocess at width x
+    height (1352x1014 unless given), as the eval render makes them:
+    (deformed, preprocessed)."""
     import torch
     from saro_gs_torch import render
     from saro_gs_torch.models import gaussians as gm
@@ -2365,25 +2922,27 @@ def stage_frame(params, nets, alive, mcfg, fstatic, cam, ts, rcfg,
         d = gm.deform(params, nets, mcfg, fstatic, ts, feat=feat)
         active = alive * (d.state[:, 0] > render.EVAL_STATE_CUTOFF)
         pre = projection.preprocess(
-            d.xyz, d.scaling, d.rotation, d.opacity.reshape(-1), cam, W, H,
-            rcfg.tile_x, rcfg.tile_y, sh_degree=3, shs=d.shs, active=active,
-            tight_rect=rcfg.tight_rect)
+            d.xyz, d.scaling, d.rotation, d.opacity.reshape(-1), cam,
+            width, height, rcfg.tile_x, rcfg.tile_y, sh_degree=3, shs=d.shs,
+            active=active, tight_rect=rcfg.tight_rect)
     return d, pre
 
 
-def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing):
+def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing, width=W,
+                  height=H):
     """K2, K1 and K3 against their plain versions on one staged frame at
-    1352x1014: K2's instance tables and sorted tile ranges and K1's colour,
-    depth, final T and n_contrib equal to the bit (need_aux=False the same
-    image), the share of (8x4 patch, instance) pairs K1's warp cull drops,
-    K3's rows within K3_TOL of their largest entry and in relative L2 on a
-    seeded colour cotangent, unvisited slots zero, two launches equal to
-    the bit.  Returns each kernel's numbers (ms, plain ms, bound) by name,
-    "K2", "K1", "K3", and the frame's instance counts."""
+    width x height (1352x1014 unless given): K2's instance tables and
+    sorted tile ranges and K1's colour, depth, final T and n_contrib equal
+    to the bit (need_aux=False the same image), the share of (8x4 patch,
+    instance) pairs K1's warp cull drops, K3's rows within K3_TOL of their
+    largest entry and in relative L2 on a seeded colour cotangent,
+    unvisited slots zero, two launches equal to the bit.  Returns each
+    kernel's numbers (ms, plain ms, bound) by name, "K2", "K1", "K3", and
+    the frame's instance counts."""
     import torch
     from saro_gs_torch.ops import binning, compositing
-    gx = (W + rcfg.tile_x - 1) // rcfg.tile_x
-    gy = (H + rcfg.tile_y - 1) // rcfg.tile_y
+    gx = (width + rcfg.tile_x - 1) // rcfg.tile_x
+    gy = (height + rcfg.tile_y - 1) // rcfg.tile_y
     nt = gx * gy
     dev = bg.device
 
@@ -2392,7 +2951,7 @@ def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing):
     offsets, tiles, rect, gattr, total = binning.expand_inputs(pre, opac)
     n_inst = min(total, cap)
     check(total <= cap, f"{label}: {total - cap} instances dropped at "
-          f"{W}x{H}")
+          f"{width}x{height}")
     exp_args = (offsets, tiles, rect, gattr, n_inst, gx, gy, rcfg.tile_x,
                 rcfg.tile_y, rcfg.tight_rect)
     kk, kg, ka = tk.expand_instances(*exp_args)
@@ -2425,15 +2984,16 @@ def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing):
 
     # ---- K1 against its plain version
     attr_s, _, tstart, tcount, _ = ks
-    kf = tk.forward_tiles(attr_s, tstart, tcount, bg, W, H, rcfg.tile_x,
-                          rcfg.tile_y, rcfg.chunk, need_aux=True)
-    kf_noaux = tk.forward_tiles(attr_s, tstart, tcount, bg, W, H,
+    kf = tk.forward_tiles(attr_s, tstart, tcount, bg, width, height,
+                          rcfg.tile_x, rcfg.tile_y, rcfg.chunk, need_aux=True)
+    kf_noaux = tk.forward_tiles(attr_s, tstart, tcount, bg, width, height,
                                 rcfg.tile_x, rcfg.tile_y, rcfg.chunk,
                                 need_aux=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pf = compositing.forward_tiles(attr_s, tstart, tcount, bg, W, H,
-                                   rcfg.tile_x, rcfg.tile_y, need_aux=True)
+    pf = compositing.forward_tiles(attr_s, tstart, tcount, bg, width,
+                                   height, rcfg.tile_x, rcfg.tile_y,
+                                   need_aux=True)
     torch.cuda.synchronize()
     k1_plain_ms = (time.perf_counter() - t0) * 1e3
     col_err = float((kf.color - pf.color).abs().max())
@@ -2446,7 +3006,7 @@ def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing):
           and torch.equal(kf_noaux.final_t, kf.final_t),
           f"{label} K1: need_aux=False changes the image")
     cull_pairs, cull_kept = compositing.cull_counts(
-        attr_s, tstart, tcount, W, H, rcfg.tile_x, rcfg.tile_y)
+        attr_s, tstart, tcount, width, height, rcfg.tile_x, rcfg.tile_y)
     k1_culled = 1.0 - cull_kept / cull_pairs
     band = f"{rcfg.tile_x}x{tk.forward_band_rows(rcfg.tile_x, rcfg.tile_y)}"
     log(f"{label} K1 forward vs plain, {nt} tiles: colour, depth, final T "
@@ -2457,12 +3017,12 @@ def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing):
         f"({100 * k1_culled:.2f}%)")
 
     def k1_call():
-        return tk.forward_tiles(attr_s, tstart, tcount, bg, W, H,
+        return tk.forward_tiles(attr_s, tstart, tcount, bg, width, height,
                                 rcfg.tile_x, rcfg.tile_y, rcfg.chunk,
                                 need_aux=False)
     k1_ms, k1_wrapper_ms, k1_src, k1_by_kernel = call_ms(k1_call, timing)
     pairs = int(pf.n_walked.sum())
-    k1_bytes = 10 * 4 * n_valid + 8 * nt + 5 * 4 * W * H
+    k1_bytes = 10 * 4 * n_valid + 8 * nt + 5 * 4 * width * height
     k1_ops = pairs * K1_FLOPS_PER_PAIR
     k1_bound = max(k1_bytes / PEAK_BYTES, k1_ops / PEAK_F32) * 1e3
     k1_by = "operations" if k1_ops / PEAK_F32 > k1_bytes / PEAK_BYTES \
@@ -2476,9 +3036,9 @@ def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing):
 
     # ---- K3 against its plain version
     gen = torch.Generator(device="cpu").manual_seed(0)
-    d_color = torch.randn(3, H, W, generator=gen).to(dev)
+    d_color = torch.randn(3, height, width, generator=gen).to(dev)
     k3_args = (attr_s, tstart, tcount, bg, kf.n_contrib, kf.color,
-               kf.final_t, d_color, W, H, rcfg.tile_x, rcfg.tile_y)
+               kf.final_t, d_color, width, height, rcfg.tile_x, rcfg.tile_y)
     kb = tk.backward_tiles(*k3_args)
     kb2 = tk.backward_tiles(*k3_args)
     torch.cuda.synchronize()
@@ -2509,7 +3069,7 @@ def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing):
     k3_pairs = int(kf.n_contrib.sum())
     check(0 < k3_contrib <= k3_pairs,
           f"{label} K3: contributing pairs miscounted")
-    k3_bytes = (10 + 9) * 4 * n_valid + 8 * nt + 8 * 4 * W * H
+    k3_bytes = (10 + 9) * 4 * n_valid + 8 * nt + 8 * 4 * width * height
     k3_ops = k3_pairs * K3_FLOPS_PER_REPLAYED_PAIR \
         + k3_contrib * K3_FLOPS_PER_CONTRIBUTING_PAIR
     k3_bound = max(k3_bytes / PEAK_BYTES, k3_ops / PEAK_F32) * 1e3
@@ -2868,6 +3428,11 @@ def main():
           and report["worst_norm_rel_err"] <= 0.05,
           "gradient parity with JAX failed")
 
+    # ---- 15 and 16 start, each in a process of its own beside phases 11
+    # to 14: the Neural3D and the D-NeRF training modes ---------------------
+    n3d_proc = start_phase("neural3d")
+    dnerf_proc = start_phase("dnerf")
+
     # ---- 11. the trainer --------------------------------------------------
     trainer, trainer_counts, info, phase11 = trainer_phase(
         params, nets, alive, fstatic, mcfg, rcfg, dev, tk)
@@ -2888,10 +3453,13 @@ def main():
     stress, stress_counts = stress_phase(dev, tk, timing)
     torch.cuda.empty_cache()
 
-    # ---- 15. the Neural3D training mode ---------------------------------------
-    neural3d, n3d_counts = neural3d_phase(dev, tk, timing)
+    # ---- 15. the Neural3D training mode: its process's results -------------
+    neural3d, n3d_counts = join_phase("neural3d", *n3d_proc)
 
-    # ---- 16. summary --------------------------------------------------------
+    # ---- 16. the D-NeRF training mode: its process's results ---------------
+    dnerf, dnerf_counts = join_phase("dnerf", *dnerf_proc)
+
+    # ---- 17. summary --------------------------------------------------------
     k4m = k4[cases[0][0]]
     k4_row = {"max_abs_err": k4_err,
               "check": "<= 1e-5 of the output's max, two launches bit-equal",
@@ -2908,6 +3476,7 @@ def main():
                                for run, c in parallel_counts.items()},
          "launches_stress": stress_counts[key],
          "launches_neural3d": n3d_counts[key],
+         "launches_dnerf": dnerf_counts[key],
          "launches_render": counts[key], **numbers}
         for key, name, src, replaces, numbers in (
             ("expand", "expand_instances (K2)", "expand.cu",
@@ -2945,6 +3514,7 @@ def main():
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"phase": "stress", **stress}), flush=True)
     print(json.dumps({"phase": "neural3d", **neural3d}), flush=True)
+    print(json.dumps({"phase": "dnerf", **dnerf}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2952,5 +3522,53 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def start_phase(name):
+    """Phase ``name`` of PHASES in a process of its own, beside the
+    script's: (the process, the file its results go to)."""
+    out = os.path.join(HERE, "build", f"chip_smoke_{name}.json")
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--phase", name, "--out", out], cwd=HERE)
+    CHILDREN.append(proc)
+    return proc, out
+
+
+def join_phase(name, proc, out):
+    """The results of a phase that ``start_phase`` started: (results,
+    the kernels' launches over its run); a failed phase fails the run."""
+    rc = proc.wait()
+    check(rc == 0 and os.path.exists(out),
+          f"{name}: its process exited with {rc}")
+    with open(out) as f:
+        done = json.load(f)
+    return done["results"], done["launches"]
+
+
+def phase_main(name, out):
+    """One phase in this process (for start_phase): build the kernels
+    (cached by the script's own build), run it, write its results."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this needs a CUDA card")
+    sys.path.insert(0, HERE)
+    from saro_gs_torch import timing
+    from saro_gs_torch.ops import tile_kernels as tk
+    tk.build()
+    results, launches = PHASES[name](torch.device("cuda"), tk, timing)
+    with open(out, "w") as f:
+        json.dump({"results": results, "launches": launches}, f)
+
+
+# the phases that can run in a process of their own
+PHASES = {"neural3d": neural3d_phase, "dnerf": dnerf_phase}
+
+
 if __name__ == "__main__":
-    main()
+    try:
+        if sys.argv[1:2] == ["--phase"]:
+            phase_main(sys.argv[2], sys.argv[4])
+        else:
+            main()
+    finally:
+        stop_children()

@@ -10,7 +10,11 @@ flat list of tensors (the model's leaves in ``step.param_leaves`` order):
   * the moments are lists shaped like the parameters;
   * an LR is a python float, a 0-d tensor or a [C] tensor that broadcasts
     over a parameter's rows;
-  * weight decay is torch-style (grad += wd * param).
+  * weight decay is torch-style (grad += wd * param), and as in torch
+    only where it is not zero: a row the opacity reset left at -inf (its
+    logit below about -103, where float32's sigmoid is 0) stays -inf,
+    where 0 * -inf would make it NaN (the JAX package's adam_step adds
+    0 * param and does).
 
 Nothing is updated in place: a step returns new tensors, so a skipped step
 simply keeps the old ones.
@@ -49,7 +53,8 @@ def adam_step(state: AdamState, params: Sequence[torch.Tensor],
     with torch.no_grad():
         for p, g, m, v, lr, wd in zip(params, grads, state.mu, state.nu,
                                       lrs, wds):
-            g = g + wd * p
+            if wd:
+                g = g + wd * p
             m = BETA1 * m + (1 - BETA1) * g
             v = BETA2 * v + (1 - BETA2) * g * g
             mhat = m / b1c

@@ -294,7 +294,7 @@ class Trainer:
                 # the step keeps the most instances any view dropped since
                 # the last check; read it on a stride
                 if it % cfg.overflow_check_every == 0:
-                    hwm = self.state.dropped_hwm
+                    hwm = int(self.state.dropped_hwm)
                     if hwm > 0:
                         self.rcfg = self.rcfg._replace(
                             max_instances=self.rcfg.max_instances * 2)

@@ -458,7 +458,8 @@ _BORDER = [[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.0], [0.999, 0.5],
 @pytest.mark.parametrize("n_pts,h,w,n_levels,c", [
     (20000, 128, 128, 7, 32), (3000, 50, 128, 0, 32), (500, 24, 40, 3, 16),
     (50, 16, 16, 4, 70), (300, 16, 16, 0, 8), (262144, 512, 512, 7, 32),
-    (100000, 256, 512, 0, 32)])
+    (100000, 256, 512, 0, 32), (262144, 64, 64, 6, 32),
+    (262144, 128, 64, 0, 32)])
 def test_scatter_kernel_matches_plain(dev, n_pts, h, w, n_levels, c):
     """K4 (scatter_mip_taps) against its plain version on the CPU: random
     coords and levels with the border points, 0- and 7-level planes, a
@@ -467,7 +468,10 @@ def test_scatter_kernel_matches_plain(dev, n_pts, h, w, n_levels, c):
     kernel's radix sort makes one pass for each 8 bits of the largest cell
     id: the cases cover 1 pass (16x16 with no pyramid, 256 cells), 2
     passes (128x128 with 7 levels, 21,845 cells; 50x128, 6,400; 24x40
-    with 3 levels, 1,275; 16x16 with 4 levels, 341) and 3 passes, whose
+    with 3 levels, 1,275; 16x16 with 4 levels, 341; the D-NeRF
+    configurations' 64x64 plane with 6 levels, 5,461 cells, and 64x128
+    time plane, 8,192, each under 262,144 rows: thousands of taps a
+    coarse cell) and 3 passes, whose
     result lands in the other buffer of the ping-pong pair (the stress
     configuration's 512x512 plane with 7 levels, 349,520 cells, and its
     512x256 time plane, 131,072)."""
@@ -480,8 +484,8 @@ def test_scatter_kernel_matches_plain(dev, n_pts, h, w, n_levels, c):
             torch.as_tensor(wide)[:, :c]]
     cells = int(grid_scatter.level_sizes(h, w, n_levels)[1][-1])
     assert grid_scatter.radix_passes(cells) == {
-        256: 1, 341: 2, 1275: 2, 6400: 2, 21845: 2, 131072: 3,
-        349520: 3}[cells]
+        256: 1, 341: 2, 1275: 2, 5461: 2, 6400: 2, 8192: 2, 21845: 2,
+        131072: 3, 349520: 3}[cells]
     tile_kernels.reset_launches()
     k = grid_scatter.scatter_mip_taps(*[x.to(dev) for x in args], h, w,
                                       n_levels)

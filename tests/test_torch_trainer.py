@@ -58,13 +58,13 @@ CFG = dict(
 N_STATIC = 20
 
 
-def _small_reader(read, point_cloud):
-    """``read`` with the init cloud cut to the 400 points the JAX test
-    takes."""
+def _small_reader(read, point_cloud, n=400):
+    """``read`` with the init cloud cut to ``n`` points (the JAX test
+    takes 400), RandomState(0)'s choice."""
     def reader(*a, **k):
         info = read(*a, **k)
         pc = info.point_cloud
-        sel = np.random.RandomState(0).choice(pc.points.shape[0], 400,
+        sel = np.random.RandomState(0).choice(pc.points.shape[0], n,
                                               replace=False)
         return info._replace(point_cloud=point_cloud(
             points=pc.points[sel], colors=pc.colors[sel],
