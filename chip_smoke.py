@@ -211,16 +211,40 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      max_instances 65,536 x 2^(doublings), the checks after the last
      doubling reading nothing dropped, the last state rendering every
      training view at the final max_instances without a drop, no bad step.
-     Measured: the scene's write and build seconds, the loader's decode ms
-     a batch, it/s over the static (50 to 1,000) and the dynamic (1,050 to
-     2,100) stage, train_step_core alone over 8 steps, ms per densify pass,
-     peak memory, the busy share over 5 iterations, run (b)'s doublings,
-     test_main's seconds;
- 17. one JSON line of results, one of each trainer phase, one of the
+     (c) Run (a) resumed through cli.train_main --start_checkpoint (its
+     checkpoint at 2,110) --start_iteration 2110 on the same model path,
+     to 2,310 (test and save there): the loaded state at step 2,110 in
+     max(capacity, next power of two) rows rendering the check view equal
+     to the bit to run (a)'s state, two identical first resumed steps
+     equal to the bit, best_psnr seeded from 2110_runtimeresults.json, no
+     bad step, the passes at 2,200 and 2,300 adding up, the SH degree 0
+     through 2,310 (it restarts at 0, as in the JAX package), no reported
+     eval view dropping, iteration_best replaced only by a better eval,
+     every kernel launched.  Measured: the scene's write and build
+     seconds, the loader's decode ms a batch, it/s over the static (50 to
+     1,000) and the dynamic (1,050 to 2,100) stage, train_step_core alone
+     over 8 steps, ms per densify pass, peak memory, the busy share over 5
+     iterations, run (b)'s doublings, test_main's seconds, run (c)'s
+     checkpoint load seconds and it/s;
+ 17. the eval's capacity, after phase 14: Evaluator.render_set on the
+     arena checkpoint at 1352x1014 over phase 11's test view (ring camera
+     0), led by ring camera 0 turned by EVAL_TURN_DEG about the world's z
+     axis, which sees few Gaussians (8-bit ground truth: each view's
+     render).  The probe sizes the capacity from the turned view, so the
+     test view drops instances and is rendered again.  Checked: at least
+     one view rendered again; no reported view with instances dropped;
+     each re-rendered view's image, depth and final T equal to the bit to
+     the view rendered alone at the final capacity, and its reported
+     PSNR that render's; K2 and K1 launched by every render.  Measured:
+     render_set's seconds, the view alone's ms, the truncated render's
+     PSNR beside the reported one;
+ 18. one JSON line of results, one of each trainer phase, one of the
      parallel path, one of the stress phase ({"phase": "stress", ...}),
      one of the Neural3D phase ({"phase": "neural3d", ...}), one of the
-     D-NeRF phase ({"phase": "dnerf", ...}), one of the kernels, then the
-     card line, then the result line {"ok": true, "device": {...}}.
+     D-NeRF phase ({"phase": "dnerf", ...}, run c under "resume"), one of
+     the eval's capacity ({"eval_capacity": ...}), one of the kernels,
+     then the card line, then the result line {"ok": true, "device":
+     {...}}.
 
 Imports nothing of JAX.  Times are the card's own: read them beside the
 card's name and power limit printed with them.
@@ -325,7 +349,15 @@ DNERF_SCHEDULE = dict(iterations=2110, testing_iterations=[2110],
                       save_iterations=[2110])
 DNERF_DOUBLING = dict(iterations=100, presize_instances=False,
                       max_instances=65536)
+# run (c): run (a) resumed from its checkpoint at 2,110 on the same model
+# path, through the passes at 2,200 and 2,300
+DNERF_RESUME = dict(iterations=2310, testing_iterations=[2310],
+                    save_iterations=[2310])
 DNERF_LIMIT_S = 1100
+# phase 17: the eval's capacity, on the arena checkpoint; ring camera 0
+# turned about the world's z axis by this many degrees sees few Gaussians
+EVAL_DIR = os.path.join(HERE, "build", "chip_smoke_eval")
+EVAL_TURN_DEG = 40.0
 
 
 def log(msg):
@@ -1619,7 +1651,7 @@ def stress_phase(dev, tk, timing):
     # the checks on the initial state before the loop starts
     timed, eval_dropped, pre = [], [], {}
     originals = {"_densify": Trainer._densify, "run": Trainer.run,
-                 "render": eval_mod.Evaluator.render}
+                 "render": eval_mod.Evaluator.render_view}
 
     def densify(self, *a, **k):
         sync()
@@ -1630,6 +1662,8 @@ def stress_phase(dev, tk, timing):
         return out
 
     def eval_render(self, *a, **k):
+        # a view as the eval reports it, after any render at a larger
+        # capacity
         out = originals["render"](self, *a, **k)
         eval_dropped.append(out[0].num_dropped)
         return out
@@ -1642,7 +1676,7 @@ def stress_phase(dev, tk, timing):
             torch.cuda.reset_peak_memory_stats()
         return originals["run"](self, *a, **k)
     Trainer._densify, Trainer.run = densify, run
-    eval_mod.Evaluator.render = eval_render
+    eval_mod.Evaluator.render_view = eval_render
     t0 = time.perf_counter()
     try:
         tr = cli.train_main(["-s", "in-memory", "--config", cfg_path, "-m",
@@ -1671,7 +1705,8 @@ def stress_phase(dev, tk, timing):
               f"for max_instances {pre['max_instances']} -> "
               f"{tr.rcfg.max_instances}")
         check(eval_dropped and not any(eval_dropped),
-              f"stress: eval renders dropped instances: {eval_dropped}")
+              f"stress: eval views reported with instances dropped: "
+              f"{eval_dropped}")
         first, last = hist[1]["loss"], max(hist.items())[1]["loss"]
         before_reset = max(i for i in hist if i < cfg.opacity_reset_interval)
         pre_reset = hist[before_reset]["loss"]
@@ -1705,7 +1740,7 @@ def stress_phase(dev, tk, timing):
     finally:
         Trainer._densify, Trainer.run = originals["_densify"], \
             originals["run"]
-        eval_mod.Evaluator.render = originals["render"]
+        eval_mod.Evaluator.render_view = originals["render"]
     log(f"stress: {cfg.iterations} iterations in {run_s:.1f} s "
         f"({dyn:.3f} it/s over iterations {a} to {b}), loss {first:.5f} -> "
         f"{pre_reset:.5f} (it {before_reset}) -> {last:.5f}, "
@@ -1903,7 +1938,7 @@ def neural3d_phase(dev, tk, timing):
                  "init": Trainer.__init__, "_densify": Trainer._densify,
                  "grow": Trainer.grow_capacity,
                  "zprune": Trainer._zprune_real_xyz, "run": Trainer.run,
-                 "render": eval_mod.Evaluator.render}
+                 "render": eval_mod.Evaluator.render_view}
 
     def timed_call(name, fn):
         def call(*a, **k):
@@ -1950,6 +1985,8 @@ def neural3d_phase(dev, tk, timing):
                         bool(torch.equal(self.state.alive, expect))))
 
     def eval_render(self, *a, **k):
+        # a view as the eval reports it, after any render at a larger
+        # capacity
         out = originals["render"](self, *a, **k)
         eval_dropped.append(out[0].num_dropped)
         return out
@@ -1970,7 +2007,7 @@ def neural3d_phase(dev, tk, timing):
                                              originals["preprocess"])
     Trainer.__init__, Trainer._densify = trainer_init, densify
     Trainer.grow_capacity, Trainer._zprune_real_xyz = grow, zprune
-    Trainer.run, eval_mod.Evaluator.render = run, eval_render
+    Trainer.run, eval_mod.Evaluator.render_view = run, eval_render
     t0 = time.perf_counter()
     try:
         tr = cli.train_main(["-s", config["source_path"], "--config",
@@ -1988,7 +2025,7 @@ def neural3d_phase(dev, tk, timing):
         Trainer.grow_capacity = originals["grow"]
         Trainer._zprune_real_xyz = originals["zprune"]
         Trainer.run = originals["run"]
-        eval_mod.Evaluator.render = originals["render"]
+        eval_mod.Evaluator.render_view = originals["render"]
     cfg, st = tr.cfg, tr.state
     hist = {h["it"]: h for h in tr.history}
     check(st.step == cfg.iterations, f"neural3d: stopped at {st.step}")
@@ -2029,7 +2066,8 @@ def neural3d_phase(dev, tk, timing):
           f"neural3d: the base-time z prune {zpruned} (expected at {z_its}, "
           "equal to the recount)")
     check(eval_dropped and not any(eval_dropped),
-          f"neural3d: eval renders dropped instances: {eval_dropped}")
+          f"neural3d: eval views reported with instances dropped: "
+          f"{eval_dropped}")
     check(all(launches[k_] > 0 for k_ in launches),
           f"neural3d: a kernel never launched in the run: {launches}")
     with open(os.path.join(model,
@@ -2215,15 +2253,16 @@ def dnerf_phase(dev, tk, timing):
     from 800x800 RGBA) over white, batch 4, planes 64^3 x 128 of 32
     channels, densify 5 from 500 every 100, the opacity reset every 2,000,
     static until 1,000, duration 150, capacity 262,144, max_instances
-    presized, the learning rates of the real run.  (b) The same scene and
-    config with DNERF_DOUBLING: no presize, max_instances 65,536, 100
-    iterations, so that the overflow check doubles it.  The scene is
-    tests/torch_dnerf_scene.py's, written under build/chip_smoke_dnerf/
-    (150 training and 20 test frames of 800x800 RGBA rendered by the port,
-    no points3d.ply: the reader draws its random init); without the
-    native library's image headers the Python decode runs
-    (SARO_NATIVE=0).  Returns (the "dnerf" results, the kernels' launches
-    over run a)."""
+    presized, the learning rates of the real run.  (c) Run (a) resumed
+    from its checkpoint at 2,110 to 2,310 (dnerf_resume).  (b) The same
+    scene and config with DNERF_DOUBLING: no presize, max_instances
+    65,536, 100 iterations, so that the overflow check doubles it.  The
+    scene is tests/torch_dnerf_scene.py's, written under
+    build/chip_smoke_dnerf/ (150 training and 20 test frames of 800x800
+    RGBA rendered by the port, no points3d.ply: the reader draws its
+    random init); without the native library's image headers the Python
+    decode runs (SARO_NATIVE=0).  Returns (the "dnerf" results, the
+    kernels' launches over run a)."""
     import signal
 
     import torch
@@ -2283,7 +2322,7 @@ def dnerf_phase(dev, tk, timing):
                  "_densify": Trainer._densify,
                  "refresh": Trainer._integral_refresh,
                  "reset": Trainer._reset_opacity, "run": Trainer.run,
-                 "render": eval_mod.Evaluator.render}
+                 "render": eval_mod.Evaluator.render_view}
 
     def scene_init(self, *a, **k):
         sync()
@@ -2310,6 +2349,8 @@ def dnerf_phase(dev, tk, timing):
         return originals["reset"](self)
 
     def eval_render(self, *a, **k):
+        # a view as the eval reports it, after any render at a larger
+        # capacity
         out = originals["render"](self, *a, **k)
         eval_dropped.append(out[0].num_dropped)
         return out
@@ -2323,7 +2364,7 @@ def dnerf_phase(dev, tk, timing):
         return originals["run"](self, *a, **k)
     scene_mod.Scene.__init__, Trainer._densify = scene_init, densify
     Trainer._integral_refresh, Trainer._reset_opacity = refresh, reset
-    Trainer.run, eval_mod.Evaluator.render = run, eval_render
+    Trainer.run, eval_mod.Evaluator.render_view = run, eval_render
     t0 = time.perf_counter()
     try:
         tr = cli.train_main(["-s", root, "--config", cfg_path, "-m", model,
@@ -2338,7 +2379,7 @@ def dnerf_phase(dev, tk, timing):
         Trainer._integral_refresh = originals["refresh"]
         Trainer._reset_opacity = originals["reset"]
         Trainer.run = originals["run"]
-        eval_mod.Evaluator.render = originals["render"]
+        eval_mod.Evaluator.render_view = originals["render"]
     cfg, st = tr.cfg, tr.state
     hist = {h["it"]: h for h in tr.history}
     check(st.step == cfg.iterations, f"dnerf: stopped at {st.step}")
@@ -2378,7 +2419,8 @@ def dnerf_phase(dev, tk, timing):
           f"dnerf: overflow doublings {tr.overflows} do not account for "
           f"max_instances {pre['max_instances']} -> {tr.rcfg.max_instances}")
     check(eval_dropped and not any(eval_dropped),
-          f"dnerf: eval renders dropped instances: {eval_dropped}")
+          f"dnerf: eval views reported with instances dropped: "
+          f"{eval_dropped}")
     check(all(launches[k_] > 0 for k_ in launches),
           f"dnerf: a kernel never launched in the run: {launches}")
     with open(os.path.join(model,
@@ -2432,6 +2474,10 @@ def dnerf_phase(dev, tk, timing):
     log(f"dnerf: checkpoint {cfg.iterations} ({loaded.alive.shape[0]} rows) "
         f"renders test view {cam.image_name} at t {cam.timestamp:.4f} as "
         f"the trainer's state does, to the bit")
+    # run (c) holds its loaded state to this render of run (a)'s last one
+    view = dict(cam=cam, rcfg=rcfg, sh_degree=cfg.sh_degree,
+                **{k_: getattr(outs[0], k_) for k_ in ("color", "depth",
+                                                       "final_t")})
     del loaded, outs
 
     # cli.test_main against the trainer's eval of the same state at
@@ -2526,6 +2572,11 @@ def dnerf_phase(dev, tk, timing):
     del tr, st
     torch.cuda.empty_cache()
 
+    # ---- run (c): run (a) resumed from its checkpoint --------------------
+    resume = dnerf_resume(root, model, config_file, view, dev, tk)
+    del view
+    torch.cuda.empty_cache()
+
     # ---- run (b): max_instances left at 65,536 ---------------------------
     doubling = dnerf_doubling(root, config_file, dev)
 
@@ -2560,7 +2611,7 @@ def dnerf_phase(dev, tk, timing):
         "test_main_s": test_main_s, "peak_memory_gib": peak_gib,
         "card_busy_ms_per_it": busy_ms or None, "traced_ms_per_it": traced_ms,
         "launches": launches, "k4": pre["k4"], "frame": fk,
-        "doubling": doubling, "phase_s": phase_s}, launches
+        "doubling": doubling, "resume": resume, "phase_s": phase_s}, launches
 
 
 def dnerf_initial_checks(tr, timing):
@@ -2603,6 +2654,153 @@ def dnerf_initial_checks(tr, timing):
     return {"loss_step1": ma["loss"], "k4": k4, "psnr_init": psnr,
             "init_points": pc.points.shape[0], "capacity": cap,
             "max_instances": tr.rcfg.max_instances}
+
+
+def dnerf_resume(root, model, config_file, view, dev, tk):
+    """Phase 16's run (c): run (a) resumed through cli.train_main with
+    --start_checkpoint (its checkpoint at 2,110) and --start_iteration
+    2110 on the same model path, standup.json with DNERF_RESUME (2,310
+    iterations, test and save at 2,310).  Checked: the loaded state at
+    step 2,110 in max(capacity, next power of two) rows, rendering the
+    check view equal to the bit to run (a)'s state (``view``); two
+    identical first resumed steps equal to the bit; best_psnr seeded from
+    2110_runtimeresults.json; no bad step; the passes at 2,200 and 2,300
+    with the size threshold and their counts adding up; the SH degree 0
+    from the start to 2,310 (it restarts at 0 and steps only at a
+    multiple of 1,000, as in the JAX package); nothing dropped in a
+    reported eval view; iteration_best replaced only by a better eval;
+    every kernel launched in the run.  Returns the numbers, the kernels'
+    launches over the run among them."""
+    import torch
+    from saro_gs_torch import cli, render
+    from saro_gs_torch import eval as eval_mod
+    from saro_gs_torch import scene as scene_mod
+    from saro_gs_torch.train.trainer import Trainer
+    start = DNERF_SCHEDULE["iterations"]
+    ckpt = os.path.join(model, "point_cloud", f"iteration_{start}",
+                        "point_cloud.ply")
+    best_ply = os.path.join(model, "point_cloud", "iteration_best",
+                            "point_cloud.ply")
+    with open(os.path.join(model, f"{start}_runtimeresults.json")) as f:
+        seed = json.load(f)["PSNR"]
+    with open(best_ply, "rb") as f:
+        best_before = f.read()
+    cfg_path = config_file("standup_resume.json", DNERF_RESUME, model)
+    pre, eval_dropped, eval_rerendered = {}, [], []
+    originals = {"load": scene_mod.Scene.load_checkpoint, "run": Trainer.run,
+                 "render": eval_mod.Evaluator.render_view}
+
+    def load(self, path):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        originals["load"](self, path)
+        torch.cuda.synchronize()
+        pre["load_s"] = time.perf_counter() - t
+        pre["rows"] = self.alive.shape[0]
+        pre["points"] = int((self.alive > 0).sum())
+
+    def run(self, *a, **k):
+        if "loss_step1" not in pre:
+            st = self.state
+            check(st.step == start and self.best_psnr == seed
+                  and self.active_sh_degree == 0,
+                  f"dnerf (c): resumed at step {st.step}, best PSNR "
+                  f"{self.best_psnr} (seed {seed}), SH degree "
+                  f"{self.active_sh_degree}")
+            out, _ = render.test_render(
+                view["cam"].raster_params(dev), view["cam"].timestamp,
+                st.points, st.nets, st.alive, self.mcfg,
+                self.scene.fstatic, self.bg, width=view["cam"].width,
+                height=view["cam"].height, sh_degree=view["sh_degree"],
+                rcfg=view["rcfg"])
+            check(out.num_dropped == 0
+                  and all(torch.equal(getattr(out, k_), view[k_])
+                          for k_ in ("color", "depth", "final_t")),
+                  "dnerf (c): the loaded checkpoint renders differently from "
+                  "run (a)'s state")
+            m, _ = same_two_steps("dnerf (c): first resumed step",
+                                  core_step(self, first_batch(self),
+                                            start + 1), st)
+            pre["loss_step1"] = m["loss"]
+            tk.reset_launches()
+            torch.cuda.synchronize()
+        return originals["run"](self, *a, **k)
+
+    def eval_render(self, *a, **k):
+        n_before = len(self.rerendered)
+        out = originals["render"](self, *a, **k)
+        eval_dropped.append(out[0].num_dropped)
+        eval_rerendered.append(len(self.rerendered) - n_before)
+        return out
+    scene_mod.Scene.load_checkpoint, Trainer.run = load, run
+    eval_mod.Evaluator.render_view = eval_render
+    t0 = time.perf_counter()
+    try:
+        tr = cli.train_main(["-s", root, "--config", cfg_path, "-m", model,
+                             "--device", str(dev), "--start_checkpoint",
+                             ckpt, "--start_iteration", str(start),
+                             "--quiet"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(tk.launches)
+    finally:
+        scene_mod.Scene.load_checkpoint = originals["load"]
+        Trainer.run = originals["run"]
+        eval_mod.Evaluator.render_view = originals["render"]
+    cfg, st = tr.cfg, tr.state
+    hist = {h["it"]: h for h in tr.history}
+    check(st.step == cfg.iterations, f"dnerf (c): stopped at {st.step}")
+    check(pre["rows"] == max(cfg.capacity,
+                             1 << (pre["points"] - 1).bit_length()),
+          f"dnerf (c): {pre['points']} points loaded into {pre['rows']} "
+          "rows")
+    check(st.bad_steps == 0 and not any("bad_step" in h for h in tr.history),
+          f"dnerf (c): {st.bad_steps} bad steps")
+    pass_its = [i for i in range(start + 1, cfg.iterations + 1)
+                if cfg.densify_from_iter < i < cfg.densify_until_iter
+                and i % cfg.densification_interval == 0]
+    check([d["it"] for d in tr.densify_log] == pass_its == [2200, 2300],
+          f"dnerf (c): densify ran at {[d['it'] for d in tr.densify_log]}")
+    for d in tr.densify_log:
+        check(d["after"] == d["before"] + d["cloned"] + d["split"]
+              - d["pruned"], f"dnerf (c): densify counts do not add up: {d}")
+    check(tr.active_sh_degree == 0,
+          f"dnerf (c): SH degree {tr.active_sh_degree} at {cfg.iterations}")
+    check(eval_dropped and not any(eval_dropped),
+          f"dnerf (c): eval views reported with instances dropped: "
+          f"{eval_dropped}")
+    check(all(launches[k_] > 0 for k_ in launches),
+          f"dnerf (c): a kernel never launched in the run: {launches}")
+    with open(os.path.join(model,
+                           f"{cfg.iterations}_runtimeresults.json")) as f:
+        psnr = json.load(f)["PSNR"]
+    with open(best_ply, "rb") as f:
+        best_after = f.read()
+    better = psnr >= seed
+    check(tr.best_psnr == (psnr if better else seed)
+          and (best_after != best_before) == better,
+          f"dnerf (c): eval PSNR {psnr} against the seed {seed}: best PSNR "
+          f"{tr.best_psnr}, iteration_best "
+          f"{'replaced' if best_after != best_before else 'kept'}")
+    a, b = min(hist), max(hist)
+    its = (b - a) / (hist[b]["elapsed_s"] - hist[a]["elapsed_s"])
+    log(f"dnerf (c): resumed from {ckpt} at {start}: {pre['points']} points "
+        f"into {pre['rows']} rows, loaded in {pre['load_s']:.2f} s; "
+        f"{cfg.iterations - start} iterations in {run_s:.1f} s ({its:.3f} "
+        f"it/s over {a} to {b}); densify {tr.densify_log}; SH degree "
+        f"{tr.active_sh_degree}; eval PSNR {psnr:.3f} against the seed "
+        f"{seed:.3f} (iteration_best {'replaced' if better else 'kept'}); "
+        f"eval views rendered again {sum(eval_rerendered)}; launches "
+        f"{launches}")
+    out = {"start": start, "iterations": cfg.iterations,
+           "points": pre["points"], "rows": pre["rows"],
+           "load_s": pre["load_s"], "run_s": run_s, "its_per_s": its,
+           "its_range": [a, b], "loss_step1": pre["loss_step1"],
+           "densify": tr.densify_log, "sh_degree": tr.active_sh_degree,
+           "seed_psnr": seed, "eval_psnr": psnr, "best_replaced": better,
+           "eval_rerendered": sum(eval_rerendered), "launches": launches}
+    del tr, st
+    return out
 
 
 def dnerf_doubling(root, config_file, dev):
@@ -2688,6 +2886,159 @@ def dnerf_doubling(root, config_file, dev):
             "views_most_instances": most, "its_per_s_50_on": its,
             "run_s": run_s, "loss_first": hist[1]["loss"],
             "loss_last": hist[b]["loss"]}
+
+
+def turned_c2w(c2w, degrees):
+    """``c2w`` turned about the world's z axis through the camera's
+    centre."""
+    a = math.radians(degrees)
+    rz = np.array([[math.cos(a), -math.sin(a), 0.0],
+                   [math.sin(a), math.cos(a), 0.0], [0.0, 0.0, 1.0]])
+    out = np.array(c2w, dtype=float)
+    out[:3, :3] = rz @ out[:3, :3]
+    return out
+
+
+def eight_bit(img):
+    """A [3, H, W] image in [0, 1] as uint8 ground truth."""
+    import torch
+    return (torch.clamp(img, 0, 1) * 255 + 0.5).to(torch.uint8).cpu().numpy()
+
+
+def eval_capacity_phase(cfg, mcfg, params, nets, alive, fstatic, info, dev,
+                        tk):
+    """Phase 17: the eval's instance capacity on the arena checkpoint at
+    1352x1014.  Evaluator.render_set over phase 11's test view, led by
+    ring camera 0 turned by EVAL_TURN_DEG about the world's z axis (few
+    Gaussians in view; its ground truth its own render): the probe sizes
+    the capacity from the turned view, the test view needs more and is
+    rendered again at a capacity that holds it.  Checked: at least one
+    view rendered again; every reported view with nothing dropped; each
+    re-rendered view's image, depth and final T equal to the bit to the
+    view rendered alone at the final capacity, and its reported PSNR that
+    render's; K2 and K1 launched by every render.  Returns (the numbers,
+    the kernels' launches over render_set)."""
+    import types
+
+    import torch
+    from saro_gs_torch import eval as eval_mod
+    from saro_gs_torch.data import cameras
+    from saro_gs_torch.models import gaussians as gm
+    from saro_gs_torch.train import losses
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        feat = gm.field_feat(params, nets, mcfg, fstatic)
+    test = info.test_cameras[0]
+    turned = dataclasses.replace(
+        cameras.camera_from_c2w(turned_c2w(cameras.ring_cameras(N_CAMS)[0],
+                                           EVAL_TURN_DEG), 0.85, W, H,
+                                test.timestamp),
+        uid=N_CAMS, image_name=f"turned_{EVAL_TURN_DEG:g}")
+    ecfg = dataclasses.replace(cfg, model_path=EVAL_DIR)
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    scene = types.SimpleNamespace(device=dev, fstatic=fstatic)
+    sh_degree = mcfg.sh_degree
+    with torch.no_grad():
+        out, _ = eval_mod.Evaluator(ecfg, scene, max_instances=1 << 22) \
+            .render(turned, params, nets, alive, feat, sh_degree)
+    check(out.num_dropped == 0, "eval capacity: the turned view dropped")
+    # the ground truth as 8-bit images (phase 11's test view holds its
+    # render unrounded): the metrics stay finite
+    turned.set_image(eight_bit(out.color))
+    test = dataclasses.replace(test)
+    test.set_image(eight_bit(torch.as_tensor(test.load_image())))
+    views = [turned, test]
+    calls, reported, truncated = [], {}, {}
+    render, render_view = (eval_mod.Evaluator.render,
+                           eval_mod.Evaluator.render_view)
+
+    def counted(self, cam, *a, **k):
+        before = dict(tk.launches)
+        got = render(self, cam, *a, **k)
+        calls.append((cam.image_name, self.rcfg.max_instances,
+                      got[0].num_instances, got[0].num_dropped,
+                      {k_: tk.launches[k_] - before[k_]
+                       for k_ in ("expand", "forward")}))
+        if got[0].num_dropped:
+            # what a report of the truncated render would say
+            gt = torch.as_tensor(cam.load_image(ecfg.white_background),
+                                 device=dev)
+            truncated[cam.image_name] = float(losses.psnr(
+                torch.clamp(got[0].color, 0, 1), gt))
+        return got
+
+    def checked(self, cam, *a, **k):
+        got = render_view(self, cam, *a, **k)
+        reported[cam.image_name] = (got[0].num_dropped, {
+            k_: getattr(got[0], k_).clone()
+            for k_ in ("color", "depth", "final_t")})
+        return got
+    eval_mod.Evaluator.render = counted
+    eval_mod.Evaluator.render_view = checked
+    tk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        ev = eval_mod.Evaluator(ecfg, scene)
+        res = ev.render_set("test", views, params, nets, alive,
+                            iteration="capacity")
+        torch.cuda.synchronize()
+        set_s = time.perf_counter() - t0
+        launches = dict(tk.launches)
+    finally:
+        eval_mod.Evaluator.render = render
+        eval_mod.Evaluator.render_view = render_view
+    names = [c.image_name for c in views]
+    check(list(reported) == names
+          and not any(d for d, _ in reported.values()),
+          f"eval capacity: views reported with instances dropped: "
+          f"{[(k_, d) for k_, (d, _) in reported.items()]}")
+    check(ev.rerendered and test.image_name in [r[0] for r in ev.rerendered],
+          f"eval capacity: no view rendered again ({calls})")
+    check(all(c[4]["expand"] >= 1 and c[4]["forward"] >= 1 for c in calls),
+          f"eval capacity: a render launched no K2 or K1: {calls}")
+    final = ev.rcfg.max_instances
+    with open(os.path.join(EVAL_DIR, "capacity_runtimeperview.json")) as f:
+        psnrs = {names[int(i)]: v for i, v in json.load(f)["PSNR"].items()}
+    alone_ms = {}
+    for name, dropped, old, new in ev.rerendered:
+        cam = views[names.index(name)]
+        alone = eval_mod.Evaluator(ecfg, scene, max_instances=final)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = alone.render(cam, params, nets, alive, feat, sh_degree)
+        torch.cuda.synchronize()
+        alone_ms[name] = (time.perf_counter() - t0) * 1e3
+        got = reported[name][1]
+        check(out.num_dropped == 0
+              and all(torch.equal(getattr(out, k_), got[k_])
+                      for k_ in ("color", "depth", "final_t")),
+              f"eval capacity: {name} rendered again differs from its "
+              f"render alone at {final}")
+        gt = torch.as_tensor(cam.load_image(ecfg.white_background),
+                             device=dev)
+        psnr = float(losses.psnr(torch.clamp(out.color, 0, 1), gt))
+        check(psnrs[name] == psnr,
+              f"eval capacity: {name}'s reported PSNR {psnrs[name]}, its "
+              f"render alone {psnr}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"eval capacity: render_set over {names}: renders (view, "
+        f"max_instances, instances, dropped, K2/K1 launches) {calls}; "
+        f"rendered again (view, dropped, capacity -> new) {ev.rerendered}; "
+        f"every reported view whole, each re-rendered one equal to the bit "
+        f"to its render alone at {final} ({alone_ms} ms); PSNR {psnrs} "
+        f"(the truncated renders: {truncated}); "
+        f"render_set {set_s:.2f} s, the phase {phase_s:.1f} s; launches "
+        f"{launches}")
+    return {"views": names, "turn_deg": EVAL_TURN_DEG,
+            "renders": [list(c[:4]) for c in calls],
+            "rerendered": [list(r) for r in ev.rerendered],
+            "max_instances": final, "psnr": psnrs,
+            "psnr_truncated": truncated,
+            "report": {k_: res[k_] for k_ in ("PSNR", "SSIM", "MS-SSIM",
+                                              "LPIPS-alex")},
+            "alone_ms": alone_ms, "render_set_s": set_s,
+            "phase_s": phase_s, "launches": launches}, launches
 
 
 def n3d_initial_checks(tr, recount, preprocessed, root):
@@ -3453,13 +3804,18 @@ def main():
     stress, stress_counts = stress_phase(dev, tk, timing)
     torch.cuda.empty_cache()
 
+    # ---- 17. the eval's capacity --------------------------------------------
+    eval_capacity, eval_counts = eval_capacity_phase(
+        cfg, mcfg, params, nets, alive, fstatic, info, dev, tk)
+    torch.cuda.empty_cache()
+
     # ---- 15. the Neural3D training mode: its process's results -------------
     neural3d, n3d_counts = join_phase("neural3d", *n3d_proc)
 
     # ---- 16. the D-NeRF training mode: its process's results ---------------
     dnerf, dnerf_counts = join_phase("dnerf", *dnerf_proc)
 
-    # ---- 17. summary --------------------------------------------------------
+    # ---- 18. summary --------------------------------------------------------
     k4m = k4[cases[0][0]]
     k4_row = {"max_abs_err": k4_err,
               "check": "<= 1e-5 of the output's max, two launches bit-equal",
@@ -3477,6 +3833,8 @@ def main():
          "launches_stress": stress_counts[key],
          "launches_neural3d": n3d_counts[key],
          "launches_dnerf": dnerf_counts[key],
+         "launches_dnerf_resume": dnerf["resume"]["launches"][key],
+         "launches_eval_capacity": eval_counts[key],
          "launches_render": counts[key], **numbers}
         for key, name, src, replaces, numbers in (
             ("expand", "expand_instances (K2)", "expand.cu",
@@ -3515,6 +3873,7 @@ def main():
     print(json.dumps({"phase": "stress", **stress}), flush=True)
     print(json.dumps({"phase": "neural3d", **neural3d}), flush=True)
     print(json.dumps({"phase": "dnerf", **dnerf}), flush=True)
+    print(json.dumps({"eval_capacity": eval_capacity}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

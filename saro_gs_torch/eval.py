@@ -9,6 +9,12 @@ ground truth and viridis depth (and the lifespan segmentation) as PNGs,
 encoded by PIL on a few threads beside the renders; the FPS protocol of
 the reference: 4 passes over the views, the first 10 frames of each
 discarded, each frame timed to a ``torch.cuda.synchronize``.
+
+A view is scored only as a whole: where a view's instances overflow the
+capacity (``num_dropped`` > 0), the capacity is raised to hold them and
+the view rendered again (``Evaluator.render_view``), since the reference
+sizes its buffers per call and never drops.  The JAX package sizes the
+capacity from the first view alone and scores a truncated later view.
 """
 from __future__ import annotations
 
@@ -30,6 +36,15 @@ from .train import losses, lpips
 
 # render_set's PNG dumps: encoder threads, and how many dumps may wait
 DUMP_THREADS, DUMP_BACKLOG = 4, 16
+# the most instance slots a view is rendered at: a view that still drops
+# there raises
+MAX_INSTANCES = 1 << 31
+
+
+def capacity_for(need: int) -> int:
+    """The instance capacity for a view of ``need`` instances: a power of
+    two at or above 1.3 x ``need`` (30% headroom)."""
+    return 1 << max(int(need * 1.3) - 1, 1).bit_length()
 
 
 def save_png(path: str, img: np.ndarray):
@@ -72,14 +87,19 @@ def _sync(device: torch.device):
 
 class Evaluator:
     """Renders and scores camera sets of ``scene``'s model on the scene's
-    device."""
+    device, from ``max_instances`` instance slots (default the config's).
+    ``rerendered`` holds (view, dropped, old capacity, new capacity) for
+    each view rendered again at a larger capacity."""
 
-    def __init__(self, cfg, scene):
+    def __init__(self, cfg, scene, max_instances=None):
         self.cfg = cfg
         self.scene = scene
         self.device = scene.device
         self.mcfg = cfg.model_config()
         self.rcfg = cfg.raster_config()
+        if max_instances is not None:
+            self.rcfg = self.rcfg._replace(max_instances=max_instances)
+        self.rerendered = []
         self.bg = torch.tensor(
             [1.0, 1.0, 1.0] if cfg.white_background else [0.0, 0.0, 0.0],
             device=self.device)
@@ -91,6 +111,32 @@ class Evaluator:
                            self.bg, width=cam.width, height=cam.height,
                            sh_degree=sh_degree, rcfg=self.rcfg, feat=feat,
                            require_segment=require_segment)
+
+    def render_view(self, cam: Camera, points, nets, alive, feat, sh_degree,
+                    require_segment=False):
+        """``render`` of the whole view: where instances were dropped, the
+        capacity is raised to ``capacity_for`` the view's instances (at
+        most MAX_INSTANCES) and the view rendered again.  Raises if a view
+        still drops at MAX_INSTANCES slots."""
+        out, seg = self.render(cam, points, nets, alive, feat, sh_degree,
+                               require_segment)
+        while out.num_dropped > 0:
+            cap = self.rcfg.max_instances
+            need = out.num_instances + out.num_dropped
+            if cap >= MAX_INSTANCES:
+                raise RuntimeError(
+                    f"view {cam.image_name!r}: {out.num_dropped} of {need} "
+                    f"instances dropped at {cap} slots")
+            new = min(capacity_for(need), MAX_INSTANCES)
+            print(f"[eval] view {cam.image_name!r}: {out.num_dropped} of "
+                  f"{need} instances dropped at max_instances {cap}; "
+                  f"rendered again at {new}", flush=True)
+            self.rerendered.append((cam.image_name, out.num_dropped, cap,
+                                    new))
+            self.rcfg = self.rcfg._replace(max_instances=new)
+            out, seg = self.render(cam, points, nets, alive, feat, sh_degree,
+                                   require_segment)
+        return out, seg
 
     def render_set(self, name: str, cameras: List[Camera],
                    points: gm.GaussianParams, nets: gm.DeformNets,
@@ -111,12 +157,11 @@ class Evaluator:
         with torch.no_grad():
             feat = gm.field_feat(points, nets, self.mcfg, self.scene.fstatic)
         # instance capacity for this model: one probe frame, 30% headroom,
-        # a power of two
+        # a power of two; a later view that needs more raises it
         probe, _ = self.render(cameras[0], points, nets, alive, feat,
                                sh_degree)
-        need = probe.num_instances + probe.num_dropped
-        self.rcfg = self.rcfg._replace(
-            max_instances=1 << max(int(need * 1.3) - 1, 1).bit_length())
+        self.rcfg = self.rcfg._replace(max_instances=capacity_for(
+            probe.num_instances + probe.num_dropped))
 
         use_lpips = lpips.lpips_available("alex")
         psnrs, ssims, msssims, lpipss = [], [], [], []
@@ -131,8 +176,8 @@ class Evaluator:
                 dumps.popleft().result()
         with ThreadPoolExecutor(DUMP_THREADS) as pool:
             for idx, cam in enumerate(cameras):
-                out, seg = self.render(cam, points, nets, alive, feat,
-                                       sh_degree, require_segment)
+                out, seg = self.render_view(cam, points, nets, alive, feat,
+                                            sh_degree, require_segment)
                 img_t = torch.clamp(out.color, 0, 1)
                 saved = idx % save_every == 0
                 if has_gt and cam.has_image:
@@ -156,7 +201,8 @@ class Evaluator:
             while dumps:
                 dumps.popleft().result()
 
-        # the FPS protocol (test.py:150-163)
+        # the FPS protocol (test.py:150-163), at a capacity that holds
+        # every view
         fps = None
         if measure_fps and len(cameras) > 10:
             warmup = 10
@@ -199,19 +245,20 @@ class Evaluator:
 def quick_test_report(trainer, cameras: List[Camera], max_views=None,
                       histograms: bool = True) -> dict:
     """Validation during training over ``cameras`` (training_report,
-    train.py:305-438), at the trainer's active SH degree: the means of
-    L1, PSNR, SSIM and MS-SSIM, the per-view PSNR series (:372-381) and
-    the opacity and t-centre histograms of the live points
-    (:391-408)."""
+    train.py:305-438), at the trainer's active SH degree and from its
+    instance capacity: the means of L1, PSNR, SSIM and MS-SSIM, the
+    per-view PSNR series (:372-381) and the opacity and t-centre
+    histograms of the live points (:391-408)."""
     st = trainer.state
-    ev = Evaluator(trainer.cfg, trainer.scene)
+    ev = Evaluator(trainer.cfg, trainer.scene,
+                   max_instances=trainer.rcfg.max_instances)
     with torch.no_grad():
         feat = gm.field_feat(st.points, st.nets, trainer.mcfg,
                              trainer.scene.fstatic)
     per_view = {"psnr": [], "ssim": [], "msssim": [], "l1": []}
     for cam in cameras[:max_views]:
-        out, _ = ev.render(cam, st.points, st.nets, st.alive, feat,
-                           trainer.active_sh_degree)
+        out, _ = ev.render_view(cam, st.points, st.nets, st.alive, feat,
+                                trainer.active_sh_degree)
         img = torch.clamp(out.color, 0, 1)
         gt = torch.as_tensor(cam.load_image(trainer.cfg.white_background),
                              device=trainer.device)

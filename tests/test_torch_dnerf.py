@@ -436,12 +436,14 @@ def test_full_width_step_matches_jax(standup, stage):
                          5e-4)
 
 
-def _stub_run(tr, rec, monkeypatch, jax_pkg):
-    """``tr.run`` with the step, the loader, the integral refresh and the
-    density moves replaced by records in ``rec``: per iteration the stage,
-    the integral flag and the SH mask the step got; each refresh with its
-    flag; each densify attempt with its size flag and the SH degree then;
-    the resets, the tests and the saves.  The step only counts."""
+def _stub_run(tr, rec, monkeypatch, jax_pkg, cfg=None):
+    """``tr.run`` under ``cfg`` (default: the trainer's, run to 2,110 with
+    a test and a save there) with the step, the loader, the integral
+    refresh and the density moves replaced by records in ``rec``: per
+    iteration the stage, the integral flag and the SH mask the step got;
+    each refresh with its flag; each densify attempt with its size flag
+    and the SH degree then; the resets, the base-time z prunes, the tests
+    and the saves.  The step only counts."""
     metrics = {"loss": 0.1, "Ll1": 0.1, "psnr": 20.0, "gmax": {},
                "inv_lr_max": 1.0, "bad_src": 0, "dropped": 0, "bad_step": 0}
 
@@ -483,6 +485,8 @@ def _stub_run(tr, rec, monkeypatch, jax_pkg):
         monkeypatch.setattr(tr, "_densify", densify)
         monkeypatch.setattr(tr, "_reset_opacity", lambda s: note(
             "reset", int(tr.state.step)) or s)
+        monkeypatch.setattr(tr, "_zprune_real_xyz", lambda s: note(
+            "zprune", int(tr.state.step)) or s)
         # the JAX package compiles the dynamic step ahead in a thread
         monkeypatch.setattr(tr, "_precompile_dynamic", lambda *a: None)
     else:
@@ -505,7 +509,9 @@ def _stub_run(tr, rec, monkeypatch, jax_pkg):
         monkeypatch.setattr(tr, "_apply_densify", lambda r: None)
         monkeypatch.setattr(tr, "_reset_opacity", lambda: note(
             "reset", tr.state.step))
-    monkeypatch.setattr(tr, "cfg", dataclasses.replace(
+        monkeypatch.setattr(tr, "_zprune_real_xyz", lambda: note(
+            "zprune", tr.state.step))
+    monkeypatch.setattr(tr, "cfg", cfg or dataclasses.replace(
         tr.cfg, iterations=2110, testing_iterations=[2110],
         save_iterations=[2110]))
     tr.active_sh_degree = 0
