@@ -238,13 +238,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      PSNR that render's; K2 and K1 launched by every render.  Measured:
      render_set's seconds, the view alone's ms, the truncated render's
      PSNR beside the reported one;
- 18. one JSON line of results, one of each trainer phase, one of the
+ 18. the bench, after phase 10 and before phases 15 and 16 start, so
+     that its part (c) has the card alone: saro_gs_torch/bench.py, the
+     port of bench.py, on its synthetic scene (bench_scene: 200,000
+     Gaussians of synthetic_state(seed=3), scales log U(0.003, 0.02);
+     field 32^3 x 16 of 16 channels).  (a) K2 and K1 equal to the bit and
+     K3 within its gates (frame_kernels) on the scene's frame at
+     1352x1014, ts 0.5, from bench_camera on black, the capacity from the
+     bench's probe; (b) one bench train step (batch 4 at 1352x1014,
+     nothing dropped, no bad step) and K4 on that step's own gradients of
+     the three 32x32 spatial planes and the xt time plane (k4_check);
+     (c) python -m saro_gs_torch.bench in a process of its own, nothing
+     else running on the card: rc 0, the four records of bench.py's
+     names in its order with the headline render_fps_1352x1014 last,
+     every value > 0, vs_baseline null, "card" naming this card, nothing
+     dropped, K2 and K1 launched in both renders and all four kernels in
+     the train bench.  Frame counts are the bench's own (50 frames, 10
+     warm-up, 4 passes; 1 + 20 steps);
+ 19. one JSON line of results, one of each trainer phase, one of the
      parallel path, one of the stress phase ({"phase": "stress", ...}),
      one of the Neural3D phase ({"phase": "neural3d", ...}), one of the
      D-NeRF phase ({"phase": "dnerf", ...}, run c under "resume"), one of
-     the eval's capacity ({"eval_capacity": ...}), one of the kernels,
-     then the card line, then the result line {"ok": true, "device":
-     {...}}.
+     the eval's capacity ({"eval_capacity": ...}), one of the bench
+     ({"bench": ...}), one of the kernels, then the card line, then the
+     result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Times are the card's own: read them beside the
 card's name and power limit printed with them.
@@ -358,6 +375,11 @@ DNERF_LIMIT_S = 1100
 # turned about the world's z axis by this many degrees sees few Gaussians
 EVAL_DIR = os.path.join(HERE, "build", "chip_smoke_eval")
 EVAL_TURN_DEG = 40.0
+# phase 18: the bench's scene, and the time limit of its process (c)
+BENCH_POINTS = 200_000
+BENCH_NAMES = ["render_fps_1352x1014", "render_fps_ckpt_1352x1014",
+               "train_steps_per_s_b4_1352x1014", "render_fps_1352x1014"]
+BENCH_LIMIT_S = 400
 
 
 def log(msg):
@@ -3329,7 +3351,9 @@ def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing, width=W,
     k2_by = "operations" if k2_ops / PEAK_F32 > k2_bytes / PEAK_BYTES \
         else "bytes"
     log(f"{label} K2 expand: exact match on {n_inst} instances ({n_valid} "
-        f"valid, {n} Gaussians); kernel {k2_ms:.4f} ms ({k2_src}), wrapper "
+        f"valid, {n} Gaussians); kernel {k2_ms:.4f} ms ({k2_src}"
+        + ("" if k2_src == "profiler" else ": the wrapper's host time")
+        + f"), wrapper "
         f"{k2_wrapper_ms:.4f} ms a call, plain {k2_plain_ms:.4f} ms, bound "
         f"{k2_bound:.4f} ms ({k2_bytes} bytes)")
 
@@ -3378,8 +3402,9 @@ def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing, width=W,
     k1_bound = max(k1_bytes / PEAK_BYTES, k1_ops / PEAK_F32) * 1e3
     k1_by = "operations" if k1_ops / PEAK_F32 > k1_bytes / PEAK_BYTES \
         else "bytes"
-    log(f"{label} K1 forward: {k1_ms:.4f} ms of device time a call "
-        f"({k1_src}; "
+    what = ("of device time" if k1_src == "profiler" else
+            "by CUDA events, host time where it exceeds the kernels'")
+    log(f"{label} K1 forward: {k1_ms:.4f} ms {what} a call ({k1_src}; "
         + ", ".join(f"{k[:40]} {v:.4f}" for k, v in k1_by_kernel.items())
         + f"), wrapper {k1_wrapper_ms:.4f} ms a call, plain "
         f"{k1_plain_ms:.1f} ms (one call), bound {k1_bound:.4f} ms ({pairs} "
@@ -3457,6 +3482,98 @@ def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing, width=W,
                "pairs_contributing": k3_contrib, "ms": k3_ms,
                "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
                "bound_by": k3_by, "library_ms": None}}
+
+
+def bench_phase(card, dev, tk, timing):
+    """Phase 18 (module docstring): (a) the frame kernels and (b) K4 on
+    the bench scene, (c) the bench alone on the card.  Returns (results,
+    the kernels' launches in each of the bench's records)."""
+    import torch
+    from saro_gs_torch import bench, render
+    from saro_gs_torch.models import field as field_mod
+    from saro_gs_torch.models import gaussians as gm
+    t_phase = time.perf_counter()
+    scene = bench.bench_scene(BENCH_POINTS, device=dev)
+    mcfg, params, nets, alive, fstatic, _ = scene
+    build_s = time.perf_counter() - t_phase
+    cam = bench.bench_camera(W, H, dev)
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        feat = gm.field_feat(params, nets, mcfg, fstatic)
+
+    # ---- (a) K2, K1 and K3 on the scene's frame at ts 0.5
+    rcfg = bench.raster_config()._replace(need_aux=False)
+    cap = bench.probe_capacity(lambda ts: render.test_render(
+        cam, ts, params, nets, alive, mcfg, fstatic, bg, width=W, height=H,
+        sh_degree=3, rcfg=rcfg, feat=feat)[0])
+    rcfg = rcfg._replace(max_instances=cap)
+    d, pre = stage_frame(params, nets, alive, mcfg, fstatic, cam, 0.5, rcfg,
+                         feat=feat)
+    fk = frame_kernels("bench", d, pre, cap, bg, rcfg, tk, timing)
+    del d, pre
+
+    # ---- (b) one bench train step; K4 on its plane gradients
+    tin = bench.train_inputs(scene, W, H, BATCH, bench.START_INSTANCES, dev)
+    (_, m), taps = grid_taps(tin.state, lambda s: bench.train_step(tin, s))
+    check(m["bad_step"] == 0 and m["dropped"] == 0,
+          f"bench: the train step went wrong: {m}")
+    k4 = {}
+    for i, (a, b) in enumerate(field_mod.COMBS):
+        if 3 in (a, b) and (a, b) != (0, 3):
+            continue                          # one time plane: xt
+        name = "xyzt"[a] + "xyzt"[b]
+        check(i in taps, f"bench: no grid gradient for plane {name}")
+        k4[name] = k4_check(f"bench plane {name}", *taps[i], timing)
+    del scene, params, nets, alive, feat, tin, taps
+    torch.cuda.empty_cache()
+
+    # ---- (c) the bench in a process of its own, alone on the card
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, "-m", "saro_gs_torch.bench"],
+                             cwd=HERE, capture_output=True, text=True,
+                             timeout=BENCH_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"bench: python -m saro_gs_torch.bench ran past "
+             f"{BENCH_LIMIT_S} s")
+    run_s = time.perf_counter() - t0
+    check(res.returncode == 0,
+          f"bench: python -m saro_gs_torch.bench exited with "
+          f"{res.returncode}: {res.stderr[-3000:]}")
+    records = [json.loads(x) for x in res.stdout.splitlines()
+               if x.startswith("{")]
+    check([r.get("metric") for r in records] == BENCH_NAMES,
+          f"bench: records {[r.get('metric') for r in records]}, expected "
+          f"{BENCH_NAMES}")
+    head, ckpt, train, last = records
+    for r in records:
+        check(r["value"] > 0 and r["vs_baseline"] is None
+              and r["dropped"] == 0 and r["card"] == card,
+              f"bench: record {r['metric']} is off: {r}")
+    check(last["ckpt_fps"] == ckpt["value"]
+          and last["train_steps_per_s"] == train["value"]
+          and train["render_fps"] == head["value"] == last["value"],
+          "bench: the headline does not embed the other records")
+    for r in (head, ckpt):
+        check(r["launches"]["expand"] > 0 and r["launches"]["forward"] > 0,
+              f"bench: {r['metric']}: K2 or K1 never launched: "
+              f"{r['launches']}")
+    check(all(v > 0 for v in train["launches"].values()),
+          f"bench: a kernel never launched in the train bench: "
+          f"{train['launches']}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"bench: {head['value']:.2f} FPS (synthetic, {head['instances']} "
+        f"instances, max_instances {head['max_instances']}), "
+        f"{ckpt['value']:.2f} FPS ({ckpt['scene']}), "
+        f"{train['value']:.3f} train steps/s; the process took {run_s:.1f} "
+        f"s, the phase {phase_s:.1f} s; card {card}")
+    launches = {"render": head["launches"], "render_ckpt": ckpt["launches"],
+                "train": train["launches"]}
+    return {"render_fps": head["value"], "render_fps_ckpt": ckpt["value"],
+            "train_steps_per_s": train["value"], "records": records,
+            "frame": fk, "k4": k4, "max_instances": cap,
+            "scene_build_s": build_s, "process_s": run_s,
+            "phase_s": phase_s}, launches
 
 
 def main():
@@ -3779,6 +3896,10 @@ def main():
           and report["worst_norm_rel_err"] <= 0.05,
           "gradient parity with JAX failed")
 
+    # ---- 18. the bench, alone on the card ------------------------------------
+    torch.cuda.empty_cache()
+    bench_res, bench_counts = bench_phase(card, dev, tk, timing)
+
     # ---- 15 and 16 start, each in a process of its own beside phases 11
     # to 14: the Neural3D and the D-NeRF training modes ---------------------
     n3d_proc = start_phase("neural3d")
@@ -3815,7 +3936,7 @@ def main():
     # ---- 16. the D-NeRF training mode: its process's results ---------------
     dnerf, dnerf_counts = join_phase("dnerf", *dnerf_proc)
 
-    # ---- 18. summary --------------------------------------------------------
+    # ---- 19. summary --------------------------------------------------------
     k4m = k4[cases[0][0]]
     k4_row = {"max_abs_err": k4_err,
               "check": "<= 1e-5 of the output's max, two launches bit-equal",
@@ -3835,6 +3956,7 @@ def main():
          "launches_dnerf": dnerf_counts[key],
          "launches_dnerf_resume": dnerf["resume"]["launches"][key],
          "launches_eval_capacity": eval_counts[key],
+         "launches_bench": {run: c[key] for run, c in bench_counts.items()},
          "launches_render": counts[key], **numbers}
         for key, name, src, replaces, numbers in (
             ("expand", "expand_instances (K2)", "expand.cu",
@@ -3874,6 +3996,7 @@ def main():
     print(json.dumps({"phase": "neural3d", **neural3d}), flush=True)
     print(json.dumps({"phase": "dnerf", **dnerf}), flush=True)
     print(json.dumps({"eval_capacity": eval_capacity}), flush=True)
+    print(json.dumps({"bench": bench_res}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,8 +57,9 @@ def test_sources_name_no_jax():
 def test_ported_surface_is_covered():
     """Every module of the JAX package has its namesake here, so the two
     checks above reach the whole port: parallel/, utils/, prep.py and
-    native.py too, and data/synth.py, the port of
-    scripts/make_synth_scene.py."""
+    native.py too, data/synth.py, the port of
+    scripts/make_synth_scene.py, and bench.py, the port of bench.py and
+    __graft_entry__.py's synthetic state."""
     jax_pkg = os.path.join(ROOT, "saro_gs_tpu")
     theirs = set()
     for dirpath, _, files in os.walk(jax_pkg):
@@ -74,7 +75,7 @@ def test_ported_surface_is_covered():
     assert theirs <= mine, sorted(theirs - mine)
     assert {"native", "prep", "utils", "utils.visual", "train.lpips",
             "data.hypernerf", "data.preprocess", "data.synth", "parallel",
-            "parallel.runtime", "parallel.shard"} <= mine
+            "parallel.runtime", "parallel.shard", "bench"} <= mine
 
 
 def test_native_build_writes_only_under_build(tmp_path, monkeypatch):
