@@ -6,7 +6,8 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
 
   1. device: require CUDA; print the card's name and power limit;
-  2. build the CUDA kernels from csrc/ with nvcc;
+  2. build the CUDA kernels from csrc/ with nvcc, and the native host
+     library's core (COLMAP parsing, knn) with g++ on this host;
   3. K2 (instance expander) against its plain version on the arena
      checkpoint's preprocessed Gaussians at 1352x1014, ts = 0.5: the
      instance tables and the sorted tile ranges must be equal exactly.
@@ -70,12 +71,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
  12. the arena trainer from disk: phase 11's cameras, ground truth (as
      8-bit PNGs) and init cloud written as a Blender/D-NeRF dataset under
      build/chip_smoke_disk/, then trained with phase 11's schedule by
-     cli.train_main (--quiet) through the blender reader and the native
-     decoder, no reader of its own.  Where png.h and jpeglib.h are found,
-     the native library must build, decode the PNGs within 1e-6 of PIL,
-     give nn distances within rtol 1e-5, atol 1e-6 of ops/knn.py on the
-     card, and read a COLMAP model as the Python readers do; without them
-     a line says so and the Python paths run.  Checked: no bad step,
+     cli.train_main (--quiet) through the blender reader and the image
+     decoder, no reader of its own.  The native core library (built in
+     phase 2) must load, give nn distances within rtol 1e-5, atol 1e-6 of
+     ops/knn.py on the card, and read a COLMAP model as the Python readers
+     do.  Where png.h and jpeglib.h are found, the image library must
+     build and decode the PNGs within 1e-6 of PIL; without them its build
+     must raise (a line says so) and the decode takes PIL, while the
+     COLMAP readers and the knn stay native.  Checked: no bad step,
      nothing dropped, the last loss logged before the opacity reset below
      0.7 of the first, every kernel launched in the run, LPIPS-alex (the
      seed-0 fixture) at 1352x1014 on the card within 1e-4 relative of the
@@ -153,8 +156,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      by llff_poses_to_colmap, per-frame points3D.bin (233,055 points in
      frame 0 with 100 near floaters and 200 far ones, 40,000 in each later
      frame: 121 slots free after the z prune, so the first densify pass
-     overflows); without png.h and jpeglib.h the Python paths run
-     (SARO_NATIVE=0).  Checked: (a) 540 train, 30 test and 300 val
+     overflows); the COLMAP files parse through the native core library
+     (its 30 points3D.bin files are also timed through the Python loop,
+     side by side), and without png.h and jpeglib.h the images decode
+     through PIL.  Checked: (a) 540 train, 30 test and 300 val
      cameras, the centres those of poses_bounds.npy within 1e-5, the
      merged cloud and the counts after the preprocess and the CLI's z
      prune equal to a numpy and scipy recount from the written clouds;
@@ -171,11 +176,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      checkpoint reloading to the same render to the bit, cli.test_main's
      PSNR, SSIM and MS-SSIM within 1e-6 of the trainer's eval of the same
      state at SH degree 3, 300 val renders written.  Measured: the
-     scene's write and build seconds (reader, preprocess), the loader's
-     decode ms a batch, it/s over iterations 50 to 500, train_step_core
-     alone on the grown state, ms per densify pass and growth, peak
-     memory, the busy share over 5 iterations, test_main's seconds (the
-     phase's limit 600 s);
+     scene's write and build seconds (reader, preprocess), the native and
+     the Python parse of the 30 points3D.bin files, the loader's decode ms
+     a batch, it/s over iterations 50 to 500, train_step_core alone on the
+     grown state, ms per densify pass and growth, peak memory, the busy
+     share over 5 iterations, test_main's seconds (the phase's limit
+     600 s);
  16. the D-NeRF training mode, in a process of its own started with
      phase 15's and run beside phases 11 to 15 (the phase's own limit
      1,100 s): configs/dnerf/standup.json through
@@ -191,8 +197,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      its floor, 150 training and 20 test frames, one hemisphere pose each
      at radius 4, rendered by the port at 800x800 as RGBA PNGs (alpha 1 -
      T); no points3d.ply, so the reader draws its 100,000-point random
-     init; without png.h and jpeglib.h the Python decode runs
-     (SARO_NATIVE=0).  Checked: (a) the init cloud equal to a numpy
+     init; without png.h and jpeglib.h the images decode through PIL.
+     Checked: (a) the init cloud equal to a numpy
      recount of RandomState(666); two identical first steps equal to the
      bit, static and dynamic, and K4 on the dynamic one's xy (64x64, 6
      levels, 5,461 cells) and xt (64x128) plane gradients, 2 radix passes,
@@ -239,15 +245,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      render_set's seconds, the view alone's ms, the truncated render's
      PSNR beside the reported one;
  18. the bench, after phase 10 and before phases 15 and 16 start, so
-     that its part (c) has the card alone: saro_gs_torch/bench.py, the
+     that its parts have the card alone: saro_gs_torch/bench.py, the
      port of bench.py, on its synthetic scene (bench_scene: 200,000
      Gaussians of synthetic_state(seed=3), scales log U(0.003, 0.02);
-     field 32^3 x 16 of 16 channels).  (a) K2 and K1 equal to the bit and
-     K3 within its gates (frame_kernels) on the scene's frame at
-     1352x1014, ts 0.5, from bench_camera on black, the capacity from the
-     bench's probe; (b) one bench train step (batch 4 at 1352x1014,
-     nothing dropped, no bad step) and K4 on that step's own gradients of
-     the three 32x32 spatial planes and the xt time plane (k4_check);
+     field 32^3 x 16 of 16 channels).  (a) and (b) run in a process of
+     their own (phase "bench_kernels"), where no profiler has run before,
+     so that K1's and K2's ms are device time by the profiler: (a) K2 and
+     K1 equal to the bit and K3 within its gates (frame_kernels) on the
+     scene's frame at 1352x1014, ts 0.5, from bench_camera on black, the
+     capacity from the bench's probe; (b) one bench train step (batch 4
+     at 1352x1014, nothing dropped, no bad step) and K4 on that step's own
+     gradients of the three 32x32 spatial planes and the xt time plane
+     (k4_check);
      (c) python -m saro_gs_torch.bench in a process of its own, nothing
      else running on the card: rc 0, the four records of bench.py's
      names in its order with the headline render_fps_1352x1014 last,
@@ -255,13 +264,45 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      dropped, K2 and K1 launched in both renders and all four kernels in
      the train bench.  Frame counts are the bench's own (50 frames, 10
      warm-up, 4 passes; 1 + 20 steps);
- 19. one JSON line of results, one of each trainer phase, one of the
+ 19. the HyperNeRF training mode, in a process of its own started once
+     phase 15 has ended and run beside phase 16 (the phase's own limit
+     600 s):
+     configs/dnerf/standup.json's model and training settings (planes
+     64^3 x 128 of 32 channels, batch 4, densify 5, capacity 262,144,
+     max_instances presized) with HYPERNERF_SCHEDULE: the hypernerf
+     reader at resolution 2 on black, duration 100, 610 of 20,000
+     iterations, static until 300, densify from 200 every 100 (passes at
+     300 to 600), test and save at 610; through cli.train_main and
+     cli.test_main.  The scene is tests/torch_hypernerf_scene.py's vrig
+     layout, written under build/chip_smoke_hypernerf/ (reused when
+     complete): 100 time steps x 2 rig cameras (left for training, right
+     for validation, 0.1 apart) of build_gt(7) with its floor, rendered by
+     the port as portrait 536x960 PNGs (rgb/2x of 1072x1920, focal length
+     1,500 px at 1x), and a points.npy of 20,000 points.  Checked: (a) 100
+     train and 100 test cameras whose FoVs, centres, sizes and timestamps
+     (time_id / 99, equal for both rig cameras of a step) agree with a
+     numpy recount from the JSON files, the init cloud points.npy's at t
+     0.5, grey; (b) two identical first steps equal to the bit, static and
+     dynamic, and K4 on the dynamic one's xy and xt plane gradients
+     (2 radix passes); (c) no bad step, the densify passes' counts adding
+     up, the overflow doublings accounting for max_instances, nothing
+     dropped at eval, the test PSNR at 610 above the initial state's;
+     (d) K2 and K1 equal to the bit and K3 within its gates on the trained
+     test frame at 536x960 on black; (e) the checkpoint reloading to the
+     same render to the bit, cli.test_main's PSNR, SSIM and MS-SSIM within
+     1e-6 of the trainer's eval of the same state.  Measured: the layout's
+     write and the scene's build seconds, the loader's decode ms a batch,
+     it/s over the static (50 to 300) and the dynamic (350 to 600) stage,
+     train_step_core alone over 8 steps, peak memory, the busy share over
+     5 iterations, test_main's seconds, K1 to K4's ms and launches;
+ 20. one JSON line of results, one of each trainer phase, one of the
      parallel path, one of the stress phase ({"phase": "stress", ...}),
      one of the Neural3D phase ({"phase": "neural3d", ...}), one of the
      D-NeRF phase ({"phase": "dnerf", ...}, run c under "resume"), one of
-     the eval's capacity ({"eval_capacity": ...}), one of the bench
-     ({"bench": ...}), one of the kernels, then the card line, then the
-     result line {"ok": true, "device": {...}}.
+     the HyperNeRF phase ({"phase": "hypernerf", ...}), one of the eval's
+     capacity ({"eval_capacity": ...}), one of the bench ({"bench":
+     ...}), one of the kernels, then the card line, then the result line
+     {"ok": true, "device": {...}}.
 
 Imports nothing of JAX.  Times are the card's own: read them beside the
 card's name and power limit printed with them.
@@ -375,6 +416,18 @@ DNERF_LIMIT_S = 1100
 # turned about the world's z axis by this many degrees sees few Gaussians
 EVAL_DIR = os.path.join(HERE, "build", "chip_smoke_eval")
 EVAL_TURN_DEG = 40.0
+# phase 19: the HyperNeRF training mode, standup.json's model and
+# training settings with the hypernerf reader on a vrig layout
+# (tests/torch_hypernerf_scene.py), its schedule cut; the scene, config
+# and model (git-ignored), and the phase's own time limit
+HYPERNERF_CONFIG = DNERF_CONFIG
+HYPERNERF_DIR = os.path.join(HERE, "build", "chip_smoke_hypernerf")
+HYPERNERF_SCHEDULE = dict(
+    loader="hypernerf", resolution=2, white_background=False, duration=100,
+    iterations=610, static_iteration=300, densify_from_iter=200,
+    densification_interval=100, testing_iterations=[610],
+    save_iterations=[610])
+HYPERNERF_LIMIT_S = 600
 # phase 18: the bench's scene, and the time limit of its process (c)
 BENCH_POINTS = 200_000
 BENCH_NAMES = ["render_fps_1352x1014", "render_fps_ckpt_1352x1014",
@@ -387,7 +440,7 @@ def log(msg):
 
 
 # the processes this script starts (phases 15 and 16 beside phases 11 to
-# 14)
+# 14, then 19 beside 16; phase 18's kernels)
 CHILDREN = []
 
 
@@ -765,6 +818,14 @@ def header_found(name):
     return res.returncode == 0
 
 
+def image_decoder(native):
+    """Which decoder the loader takes: "native", or "PIL" and why (the
+    image library's first error line, printed once on stderr)."""
+    if native.image_available():
+        return "native"
+    return f"PIL (no image library: {native.IMAGE_ERROR})"
+
+
 def write_arena_dataset(info, root):
     """Phase 12's dataset on disk, in the Blender/D-NeRF layout: phase
     11's cameras as transforms_{train,test}.json (``time`` chosen so the
@@ -798,51 +859,59 @@ def write_arena_dataset(info, root):
     return paths
 
 
-def native_checks(info, paths, root, dev):
-    """Phase 12's checks of the native library on the card's host: its
-    build, the batch PNG decode against PIL, nn distances against
+def native_checks(info, paths, root, dev, core_build_s):
+    """Phase 12's checks of the native host library on the card's host:
+    the core library (built in phase 2, in ``core_build_s``) loaded, nn distances against
     ops/knn.py on the card, and the COLMAP binary readers against the
-    Python ones.  Returns the results, or None (with SARO_NATIVE=0 set
-    for the rest of the run) where the image headers are missing."""
+    Python ones; the image library built and its batch PNG decode against
+    PIL where png.h and jpeglib.h are found, else its build raising, and
+    PIL decoding.  Returns the results."""
     import torch
     from saro_gs_torch import native
     from saro_gs_torch.data import cameras, colmap
     from saro_gs_torch.ops import knn
-    # built here, on this host, whatever a copied build/ holds
-    if os.path.exists(native.SO_PATH):
-        os.remove(native.SO_PATH)
+    check(native.available(), "native: the core library did not load")
     headers = {h: header_found(h) for h in ("png.h", "jpeglib.h")}
-    if not all(headers.values()):
-        # the build must then fail loudly, and the run goes on with
-        # SARO_NATIVE=0
-        try:
-            native.build()
-        except RuntimeError as e:
-            err = next((ln for ln in str(e).splitlines()
-                        if "fatal error" in ln), str(e).splitlines()[0])
-        else:
-            fail("native: the build passed without the image headers")
-        print(f"native: image headers missing on this host {headers}; the "
-              f"build raises ({err.strip()}); the Python paths run "
-              "(SARO_NATIVE=0)", flush=True)
-        os.environ["SARO_NATIVE"] = "0"
-        return None
-    build_s = native.build()
-    check(native.available(), "native: the library did not load")
-    log(f"native: built in {build_s:.2f} s ({native.SO_PATH})")
-    t0 = time.perf_counter()
-    imgs = native.load_images(paths, W, H, (1.0, 1.0, 1.0))
-    batch_ms = (time.perf_counter() - t0) * 1e3
-    check(imgs is not None, "native: load_images refused the PNGs")
     t0 = time.perf_counter()
     pil = np.stack([cameras.load_image_pil(p, W, H, True) for p in paths])
     pil_ms = (time.perf_counter() - t0) * 1e3
-    img_err = float(np.abs(imgs - pil).max())
-    check(img_err <= 1e-6, f"native: decode differs from PIL by {img_err}")
+    out = {"headers": headers, "core_build_s": core_build_s,
+           "pil_decode_ms": pil_ms, "images": len(paths)}
+    if all(headers.values()):
+        out["image_build_s"] = native.build_image()
+        check(native.image_available(), "native: the image library did not "
+              f"load: {native.IMAGE_ERROR}")
+        t0 = time.perf_counter()
+        imgs = native.load_images(paths, W, H, (1.0, 1.0, 1.0))
+        out["png_decode_ms"] = (time.perf_counter() - t0) * 1e3
+        check(imgs is not None, "native: load_images refused the PNGs")
+        out["decode_max_abs_err"] = float(np.abs(imgs - pil).max())
+        check(out["decode_max_abs_err"] <= 1e-6,
+              f"native: decode differs from PIL by "
+              f"{out['decode_max_abs_err']}")
+        log(f"native: image library built in {out['image_build_s']:.2f} s")
+    else:
+        # the image library's build must fail loudly; the decode then
+        # takes PIL and the core library stays
+        try:
+            native.build_image()
+        except RuntimeError as e:
+            out["image_error"] = next(
+                (ln.strip() for ln in str(e).splitlines()
+                 if "fatal error" in ln), str(e).splitlines()[0])
+        else:
+            fail("native: the image library built without the image "
+                 "headers")
+        check(not native.image_available() and native.IMAGE_ERROR,
+              "native: the image library loaded without the image headers")
+        log(f"native: image headers missing on this host {headers}; the "
+            f"image library's build raises ({out['image_error']}); images "
+            "decode through PIL, the core library (COLMAP, knn) is native")
     pts = np.asarray(info.point_cloud.points, np.float32)
     t0 = time.perf_counter()
     nn = native.nn_distance(pts)
     nn_ms = (time.perf_counter() - t0) * 1e3
+    check(nn is not None, "native: nn_distance refused the cloud")
     ref = torch.sqrt(knn.knn_sq_dists(torch.as_tensor(pts, device=dev),
                                       1)[:, 0]).cpu().numpy()
     nn_err = float(np.max(np.abs(nn - ref) / (1e-6 + 1e-5 * np.abs(ref))))
@@ -873,16 +942,17 @@ def native_checks(info, paths, root, dev):
                                                        "images.bin")),
                 colmap.read_points3d_binary(os.path.join(sparse,
                                                          "points3D.bin")))
+    check(native.read_points3d_bin(os.path.join(sparse, "points3D.bin"))
+          is not None, "native: the core library refused points3D.bin")
     t0 = time.perf_counter()
     nat = read_all()
     colmap_ms = (time.perf_counter() - t0) * 1e3
-    os.environ["SARO_NATIVE"] = "0"
-    try:
-        t0 = time.perf_counter()
-        py = read_all()
-        colmap_py_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        del os.environ["SARO_NATIVE"]
+    t0 = time.perf_counter()
+    py = (colmap.read_cameras_binary_py(os.path.join(sparse, "cameras.bin")),
+          colmap.read_images_binary_py(os.path.join(sparse, "images.bin")),
+          colmap.read_points3d_binary_py(os.path.join(sparse,
+                                                      "points3D.bin")))
+    colmap_py_ms = (time.perf_counter() - t0) * 1e3
     same = (nat[0].keys() == py[0].keys() and nat[1].keys() == py[1].keys()
             and all(np.array_equal(nat[0][k].params, py[0][k].params)
                     and nat[0][k][:4] == py[0][k][:4] for k in nat[0])
@@ -891,24 +961,23 @@ def native_checks(info, paths, root, dev):
                     and nat[1][k].name == py[1][k].name for k in nat[1])
             and all(np.array_equal(a, b) for a, b in zip(nat[2], py[2])))
     check(same, "native: the COLMAP readers differ from Python's")
-    out = {"build_s": build_s, "png_decode_ms": batch_ms,
-           "pil_decode_ms": pil_ms, "images": len(paths),
-           "decode_max_abs_err": img_err, "nn_points": int(pts.shape[0]),
-           "nn_ms": nn_ms, "nn_err_of_tolerance": nn_err,
-           "colmap_points": int(nat[2][0].shape[0]),
-           "colmap_ms": colmap_ms, "colmap_python_ms": colmap_py_ms}
+    out.update(nn_points=int(pts.shape[0]), nn_ms=nn_ms,
+               nn_err_of_tolerance=nn_err,
+               colmap_points=int(nat[2][0].shape[0]), colmap_ms=colmap_ms,
+               colmap_python_ms=colmap_py_ms)
     log(f"native: {json.dumps(out)}")
     return out
 
 
-def disk_trainer_phase(info, losses11, dyn11, dev, tk):
+def disk_trainer_phase(info, losses11, dyn11, core_build_s, dev, tk):
     """Phase 12: phase 11's scene written to disk and trained from there
     through the blender reader, the loader's decode and cli.train_main;
     returns (the "trainer_disk" results, the kernels' launches over the
     run)."""
     import torch
-    from saro_gs_torch import cli, render, scene
+    from saro_gs_torch import cli, native, render, scene
     from saro_gs_torch.config import load_config
+    from saro_gs_torch.data import cameras
     from saro_gs_torch.train import losses, lpips
 
     def sync():
@@ -923,7 +992,7 @@ def disk_trainer_phase(info, losses11, dyn11, dev, tk):
     write_s = time.perf_counter() - t0
     log(f"trainer_disk: {len(paths)} PNGs at {W}x{H} and points3d.ply "
         f"written in {write_s:.1f} s under {root}")
-    nat = native_checks(info, paths, DISK_DIR, dev)
+    nat = native_checks(info, paths, DISK_DIR, dev, core_build_s)
 
     with open(ARENA_CONFIG) as f:
         config = json.load(f)
@@ -940,25 +1009,25 @@ def disk_trainer_phase(info, losses11, dyn11, dev, tk):
     scene_s = time.perf_counter() - t0
     bsz, n_train = config["batch"], len(sc.info.train_cameras)
     loader = sc.train_loader(bsz, num_workers=1)
+    decoder = image_decoder(native)
+    batches = [np.arange(b * bsz, (b + 1) * bsz) % n_train for b in range(10)]
     try:
         decode = {}
-        for mode in ("native", "python"):
-            if mode == "python":
-                os.environ["SARO_NATIVE"] = "0"
-            t0 = time.perf_counter()
-            for b in range(10):
-                loader._load_batch(np.arange(b * bsz, (b + 1) * bsz)
-                                   % n_train)
-            decode[mode] = (time.perf_counter() - t0) * 1e3 / 10
-            if mode == "python" and nat is not None:
-                del os.environ["SARO_NATIVE"]
+        t0 = time.perf_counter()
+        for idx in batches:
+            loader._load_batch(idx)
+        decode["loader"] = (time.perf_counter() - t0) * 1e3 / 10
+        t0 = time.perf_counter()
+        for idx in batches:
+            for c in (sc.info.train_cameras[i] for i in idx):
+                cameras.load_image_pil(c.image_path, c.width, c.height, True)
+        decode["pil"] = (time.perf_counter() - t0) * 1e3 / 10
     finally:
         loader.close()
     del sc
     log(f"trainer_disk: scene built in {scene_s:.2f} s; BatchLoader decode "
-        f"{decode['native']:.2f} ms a batch of {config['batch']} "
-        f"({'native' if nat else 'Python: no native library'}), "
-        f"{decode['python']:.2f} ms by PIL")
+        f"{decode['loader']:.2f} ms a batch of {config['batch']} "
+        f"({decoder}), PIL alone {decode['pil']:.2f} ms")
 
     model = os.path.join(DISK_DIR, "model")
     tk.reset_launches()
@@ -1052,7 +1121,8 @@ def disk_trainer_phase(info, losses11, dyn11, dev, tk):
     return {
         "iterations": cfg.iterations, "batch": cfg.batch,
         "resolution": [W, H], "write_s": write_s, "native": nat,
-        "scene_s": scene_s, "decode_ms_per_batch": decode, "run_s": run_s,
+        "scene_s": scene_s, "decoder": decoder, "decode_ms_per_batch": decode,
+        "run_s": run_s,
         "dynamic_its_per_s": dyn, "dynamic_its_per_s_phase11": dyn11,
         "loss_first": first, "loss_before_reset": pre, "loss_last": last,
         "loss_max_rel_diff_phase11": loss_diff, "loss_its": common,
@@ -1631,8 +1701,7 @@ def stress_phase(dev, tk, timing):
     import signal
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from saro_gs_torch import cli, render, scene
+    from saro_gs_torch import cli
     from saro_gs_torch import eval as eval_mod
     from saro_gs_torch.data import readers
     from saro_gs_torch.train import step as step_mod
@@ -1707,62 +1776,30 @@ def stress_phase(dev, tk, timing):
         run_s = time.perf_counter() - t0
         launches = dict(tk.launches)
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        cfg = tr.cfg
-        hist = {h["it"]: h for h in tr.history}
-        st = tr.state
-        check(st.step == cfg.iterations, f"stress: stopped at {st.step}")
-        check(st.bad_steps == 0
-              and not any("bad_step" in h for h in tr.history),
-              f"stress: {st.bad_steps} bad steps")
-        check(hist[1]["loss"] == pre["loss_step1"],
-              f"stress: iteration 1 logged loss {hist[1]['loss']}, the "
-              f"checked first step {pre['loss_step1']}")
-        # a view that dropped instances doubles the capacity at the next
-        # check: every doubling is logged, and they account for the
-        # capacity the run ends with
-        check(all(hwm > 0 for _, hwm in tr.overflows)
-              and tr.rcfg.max_instances
-              == pre["max_instances"] << len(tr.overflows),
-              f"stress: overflow doublings {tr.overflows} do not account "
-              f"for max_instances {pre['max_instances']} -> "
-              f"{tr.rcfg.max_instances}")
-        check(eval_dropped and not any(eval_dropped),
-              f"stress: eval views reported with instances dropped: "
-              f"{eval_dropped}")
-        first, last = hist[1]["loss"], max(hist.items())[1]["loss"]
-        before_reset = max(i for i in hist if i < cfg.opacity_reset_interval)
-        pre_reset = hist[before_reset]["loss"]
-        check(pre_reset < 0.7 * first,
-              f"stress: loss {first} -> {pre_reset} (it {before_reset})")
-        its = [d["it"] for d in tr.densify_log]
-        check(its == list(range(cfg.densify_from_iter
-                                + cfg.densification_interval,
-                                cfg.densify_until_iter,
-                                cfg.densification_interval)),
-              f"stress: densify ran at {its}")
-        for d in tr.densify_log:
-            check(d["after"] == d["before"] + d["cloned"] + d["split"]
-                  - d["pruned"], f"stress: densify counts do not add up: "
-                  f"{d}")
-        check(tr.active_sh_degree == 0,
-              f"stress: SH degree {tr.active_sh_degree} after "
-              f"{cfg.iterations} iterations")
-        check(all(launches[k] > 0 for k in launches),
-              f"stress: a kernel never launched in the run: {launches}")
-        # the loop's rate, loader and control included, from iteration 50
-        # to the last one logged
-        a, b = 50, max(hist)
-        dyn = (b - a) / (hist[b]["elapsed_s"] - hist[a]["elapsed_s"])
-        with open(os.path.join(model,
-                               f"{cfg.iterations}_runtimeresults.json")) as f:
-            report = json.load(f)
-        check(report["PSNR"] > pre["psnr_init"],
-              f"stress: test PSNR {report['PSNR']} at {cfg.iterations}, "
-              f"{pre['psnr_init']} from the initial state")
     finally:
         Trainer._densify, Trainer.run = originals["_densify"], \
             originals["run"]
         eval_mod.Evaluator.render_view = originals["render"]
+    cfg, st = tr.cfg, tr.state
+    hist, report = run_checks("stress", tr, pre, eval_dropped, launches)
+    first, last = hist[1]["loss"], max(hist.items())[1]["loss"]
+    before_reset = max(i for i in hist if i < cfg.opacity_reset_interval)
+    pre_reset = hist[before_reset]["loss"]
+    check(pre_reset < 0.7 * first,
+          f"stress: loss {first} -> {pre_reset} (it {before_reset})")
+    its = [d["it"] for d in tr.densify_log]
+    check(its == list(range(cfg.densify_from_iter
+                            + cfg.densification_interval,
+                            cfg.densify_until_iter,
+                            cfg.densification_interval)),
+          f"stress: densify ran at {its}")
+    check(tr.active_sh_degree == 0,
+          f"stress: SH degree {tr.active_sh_degree} after {cfg.iterations} "
+          "iterations")
+    # the loop's rate, loader and control included, from iteration 50 to
+    # the last one logged
+    a, b = 50, max(hist)
+    dyn = (b - a) / (hist[b]["elapsed_s"] - hist[a]["elapsed_s"])
     log(f"stress: {cfg.iterations} iterations in {run_s:.1f} s "
         f"({dyn:.3f} it/s over iterations {a} to {b}), loss {first:.5f} -> "
         f"{pre_reset:.5f} (it {before_reset}) -> {last:.5f}, "
@@ -1776,26 +1813,8 @@ def stress_phase(dev, tk, timing):
 
     # the saved checkpoint renders as the trainer's final state does
     cam = info.test_cameras[len(info.test_cameras) // 2]
-    loaded = scene.Scene(cfg, load_iteration=str(cfg.iterations), device=dev)
     bg = torch.ones(3, device=dev)
-    rcfg = cfg.raster_config()._replace(max_instances=tr.rcfg.max_instances)
-    outs = []
-    for p, n_, al, fs in ((st.points, st.nets, st.alive, tr.scene.fstatic),
-                          (loaded.params, loaded.nets, loaded.alive,
-                           loaded.fstatic)):
-        out, _ = render.test_render(cam.raster_params(dev), cam.timestamp, p,
-                                    n_, al, tr.mcfg, fs, bg, width=W,
-                                    height=H, sh_degree=cfg.sh_degree,
-                                    rcfg=rcfg)
-        check(out.num_dropped == 0, "stress: the check render dropped")
-        outs.append(out)
-    check(all(torch.equal(getattr(outs[0], k), getattr(outs[1], k))
-              for k in ("color", "depth", "final_t")),
-          "stress: the reloaded checkpoint renders differently")
-    log(f"stress: checkpoint {cfg.iterations} ({loaded.alive.shape[0]} "
-        f"rows) renders test view {cam.image_name} as the trainer's state "
-        f"does, to the bit")
-    del loaded
+    rcfg, _ = reload_check("stress", tr, cam, bg, dev)
 
     # K2, K1 and K3 on that view of the trained state
     d, pre_frame = stage_frame(st.points, st.nets, st.alive, tr.mcfg,
@@ -1814,46 +1833,24 @@ def stress_phase(dev, tk, timing):
         loader.close()
     scale_int = tr.integral_flags(st.step + 1)[1]
 
-    def core(state):
-        state, m = step_mod.train_step_core(
+    def step(state):
+        return step_mod.train_step_core(
             state, cams_b, gt_b, ts_b, tr.bg, tr.scene.fstatic,
             tr._statics(), stage="dynamatic", sh_degree=cfg.sh_degree,
             scale_integral=scale_int,
             sh_mask=tr._sh_mask(tr.active_sh_degree))
-        check(m["bad_step"] == 0 and m["dropped"] == 0,
-              f"stress: a train_step_core step went wrong: {m}")
-        return state
-    state = core(step_mod.clone_state(st))
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(8):
-        state = core(state)
-    sync()
-    core_its = 8 / (time.perf_counter() - t0)
+    core_ips, state = core_its("stress", step, st)
     with timing.record() as rec:
         for _ in range(3):
-            state = core(state)
+            state, m = step(state)
+            check(m["bad_step"] == 0 and m["dropped"] == 0,
+                  f"stress: a train_step_core step went wrong: {m}")
     stages = {k: v / 3 for k, v in rec.stages().items()}
     del state
-    # 5 iterations of the loop under torch.profiler: the card's busy share
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sync()
-        t0 = time.perf_counter()
-        tr.run(max_iterations=cfg.iterations + 5, log_every=10 ** 6)
-        sync()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / 5
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / 5
-    check(tr.state.bad_steps == 0 and tr.state.dropped_hwm == 0,
-          "stress: the traced iterations went wrong")
-    log(f"stress: train_step_core alone {core_its:.3f} it/s; ms per step by "
+    busy_ms, traced_ms, busy = busy_share("stress", tr)
+    log(f"stress: train_step_core alone {core_ips:.3f} it/s; ms per step by "
         "stage " + json.dumps({k: round(v, 3) for k, v in stages.items()})
-        + f" (sum {sum(stages.values()):.2f}); card busy {busy_ms:.2f} ms "
-        f"of {traced_ms:.2f} ms an iteration under the profiler "
-        + (f"({100 * busy_ms / traced_ms:.1f}%)" if busy_ms > 0 else
-           "(no device time reported: not measured)"))
+        + f" (sum {sum(stages.values()):.2f}); {busy}")
     readers.SCENE_READERS.pop(STRESS_LOADER, None)
     phase_s = time.perf_counter() - t_phase
     signal.alarm(0)
@@ -1867,7 +1864,7 @@ def stress_phase(dev, tk, timing):
         "train_views": len(info.train_cameras),
         "test_views": len(info.test_cameras), "init_points": STRESS_INIT,
         "gt_bytes": int(gt_gb * 1e9), "scene_s": scene_s, "run_s": run_s,
-        "its_per_s_from_50": dyn, "train_step_core_its_per_s": core_its,
+        "its_per_s_from_50": dyn, "train_step_core_its_per_s": core_ips,
         "stages_ms": stages, "densify_ms": timed, "densify": tr.densify_log,
         "overflows": tr.overflows,
         "max_instances": [pre["max_instances"], tr.rcfg.max_instances],
@@ -1894,19 +1891,18 @@ def neural3d_phase(dev, tk, timing):
     capacity 262,144, max_instances presized.  The scene is
     tests/torch_n3d_scene.py's, written under build/chip_smoke_n3d/ (19 rig
     cameras x 30 frames of build_gt(7) at 2704x2028, per-frame clouds with
-    floaters) and read through the colmap reader; without the native
-    library's image headers the Python paths run (SARO_NATIVE=0).
+    floaters) and read through the colmap reader, which parses through the
+    native core library; without the image library the images decode
+    through PIL.
     Returns (the "neural3d" results, the kernels' launches over the run)."""
     import signal
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from saro_gs_torch import cli, native, render
+    from saro_gs_torch import cli, native
     from saro_gs_torch import eval as eval_mod
     from saro_gs_torch import scene as scene_mod
-    from saro_gs_torch.data import readers
+    from saro_gs_torch.data import colmap, readers
     from saro_gs_torch.models import gaussians as gm
-    from saro_gs_torch.train import step as step_mod
     from saro_gs_torch.train.trainer import Trainer
     from tests import torch_n3d_scene as n3d
 
@@ -1922,16 +1918,14 @@ def neural3d_phase(dev, tk, timing):
         torch.cuda.synchronize()
 
     t_phase = t0 = time.perf_counter()
-    if not all(header_found(h) for h in ("png.h", "jpeglib.h")):
-        os.environ["SARO_NATIVE"] = "0"
-    decoder = "native" if native.available() else "PIL (SARO_NATIVE=0)"
+    decoder = image_decoder(native)
     root = os.path.join(N3D_DIR, "scene")
     written = n3d.write_n3d_scene(root, dev)
     sync()
     write_s = time.perf_counter() - t0
-    frames_xyz = [n3d.read_points3d(os.path.join(
-        root, f"colmap_{j}", "sparse", "0", "points3D.bin"))
-        for j in range(n3d.N3D_FRAMES)]
+    bins = [os.path.join(root, f"colmap_{j}", "sparse", "0", "points3D.bin")
+            for j in range(n3d.N3D_FRAMES)]
+    frames_xyz = [n3d.read_points3d(p) for p in bins]
     recount = n3d.recount_preprocess31(frames_xyz)
     log(f"neural3d: scene of {n3d.N3D_CAMS} cameras x {n3d.N3D_FRAMES} "
         f"frames at {n3d.N3D_W}x{n3d.N3D_H} "
@@ -1939,6 +1933,24 @@ def neural3d_phase(dev, tk, timing):
         f"under {root}; clouds {[x.shape[0] for x in frames_xyz[:2]]}..., "
         f"numpy recount (merged, preprocessed, after the z prune) "
         f"{recount}; image decode {decoder}")
+    # the reader's parse of the per-frame clouds: the native core library
+    # against the Python loop, side by side
+    parse_s = {}
+    for mode, read in (("native", colmap.read_points3d_binary),
+                       ("python", colmap.read_points3d_binary_py)):
+        t0 = time.perf_counter()
+        parsed = [read(p) for p in bins]
+        parse_s[mode] = time.perf_counter() - t0
+        check(all(np.array_equal(x[0], ref)
+                  for x, ref in zip(parsed, frames_xyz)),
+              f"neural3d: the {mode} parse of points3D.bin differs from the "
+              "written clouds")
+    check(native.read_points3d_bin(bins[0]) is not None,
+          "neural3d: the native core library refused points3D.bin")
+    log(f"neural3d: the {len(bins)} points3D.bin files "
+        f"({sum(x.shape[0] for x in frames_xyz)} points) parse in "
+        f"{parse_s['native']:.3f} s natively, {parse_s['python']:.3f} s by "
+        "the Python loop")
 
     model = os.path.join(N3D_DIR, "model")
     shutil.rmtree(model, ignore_errors=True)
@@ -2049,26 +2061,12 @@ def neural3d_phase(dev, tk, timing):
         Trainer.run = originals["run"]
         eval_mod.Evaluator.render_view = originals["render"]
     cfg, st = tr.cfg, tr.state
-    hist = {h["it"]: h for h in tr.history}
-    check(st.step == cfg.iterations, f"neural3d: stopped at {st.step}")
-    check(st.bad_steps == 0 and not any("bad_step" in h for h in tr.history),
-          f"neural3d: {st.bad_steps} bad steps")
-    check(hist[1]["loss"] == pre["loss_step1"],
-          f"neural3d: iteration 1 logged loss {hist[1]['loss']}, the "
-          f"checked first step {pre['loss_step1']}")
-    check(all(hwm > 0 for _, hwm in tr.overflows)
-          and tr.rcfg.max_instances
-          == pre["max_instances"] << len(tr.overflows),
-          f"neural3d: overflow doublings {tr.overflows} do not account for "
-          f"max_instances {pre['max_instances']} -> {tr.rcfg.max_instances}")
+    hist, report = run_checks("neural3d", tr, pre, eval_dropped, launches)
     its = [d["it"] for d in tr.densify_log]
     check(its == [i for i in range(1, cfg.densify_until_iter)
                   if i > cfg.densify_from_iter
                   and i % cfg.densification_interval == 0],
           f"neural3d: densify ran at {its}")
-    for d in tr.densify_log:
-        check(d["after"] == d["before"] + d["cloned"] + d["split"]
-              - d["pruned"], f"neural3d: densify counts do not add up: {d}")
     cap0 = pre["capacity"]
     check(grown and grown[0][1:3] == (cap0, 2 * cap0),
           f"neural3d: no capacity growth {cap0} -> {2 * cap0}: {grown}; "
@@ -2087,17 +2085,6 @@ def neural3d_phase(dev, tk, timing):
     check([z[0] for z in zpruned] == z_its and all(z[3] for z in zpruned),
           f"neural3d: the base-time z prune {zpruned} (expected at {z_its}, "
           "equal to the recount)")
-    check(eval_dropped and not any(eval_dropped),
-          f"neural3d: eval views reported with instances dropped: "
-          f"{eval_dropped}")
-    check(all(launches[k_] > 0 for k_ in launches),
-          f"neural3d: a kernel never launched in the run: {launches}")
-    with open(os.path.join(model,
-                           f"{cfg.iterations}_runtimeresults.json")) as f:
-        report = json.load(f)
-    check(report["PSNR"] > pre["psnr_init"],
-          f"neural3d: test PSNR {report['PSNR']} at {cfg.iterations}, "
-          f"{pre['psnr_init']} from the initial state")
     a, b = 50, max(i for i in hist if i <= cfg.densify_until_iter)
     dyn = (b - a) / (hist[b]["elapsed_s"] - hist[a]["elapsed_s"])
     first, last = hist[1]["loss"], max(hist.items())[1]["loss"]
@@ -2119,44 +2106,11 @@ def neural3d_phase(dev, tk, timing):
     # the checkpoint renders the test frame as the trainer's state does
     info = tr.scene.info
     cam = info.test_cameras[len(info.test_cameras) // 2]
-    loaded = scene_mod.Scene(cfg, load_iteration=str(cfg.iterations),
-                             device=dev)
     bg = torch.zeros(3, device=dev)
-    rcfg = cfg.raster_config()._replace(max_instances=tr.rcfg.max_instances)
-    outs = []
-    for p, n_, al, fs in ((st.points, st.nets, st.alive, tr.scene.fstatic),
-                          (loaded.params, loaded.nets, loaded.alive,
-                           loaded.fstatic)):
-        out, _ = render.test_render(cam.raster_params(dev), cam.timestamp, p,
-                                    n_, al, tr.mcfg, fs, bg, width=W,
-                                    height=H, sh_degree=cfg.sh_degree,
-                                    rcfg=rcfg)
-        check(out.num_dropped == 0, "neural3d: the check render dropped")
-        outs.append(out)
-    check(all(torch.equal(getattr(outs[0], k_), getattr(outs[1], k_))
-              for k_ in ("color", "depth", "final_t")),
-          "neural3d: the reloaded checkpoint renders differently")
-    log(f"neural3d: checkpoint {cfg.iterations} ({loaded.alive.shape[0]} "
-        f"rows) renders test view {cam.image_name} at t "
-        f"{cam.timestamp:.4f} as the trainer's state does, to the bit")
-    del loaded, outs
+    rcfg, _ = reload_check("neural3d", tr, cam, bg, dev)
 
-    # cli.test_main: the test set, then the 300 spiral val views; its
-    # metrics against the trainer's eval of the same state at test_main's
-    # SH degree (the trainer's own eval at 510 renders at the active one)
-    sh_now, tr.active_sh_degree = tr.active_sh_degree, cfg.sh_degree
-    same = eval_mod.quick_test_report(tr, tr.scene.test_cameras(),
-                                      histograms=False)
-    tr.active_sh_degree = sh_now
-    t0 = time.perf_counter()
-    res = cli.test_main(["-m", model, "--iteration", str(cfg.iterations),
-                         "--device", str(dev)])
-    sync()
-    test_main_s = time.perf_counter() - t0
-    for key in ("PSNR", "SSIM", "MS-SSIM"):
-        check(abs(res[key] - same[key]) <= 1e-6 * abs(same[key]),
-              f"neural3d: test_main's {key} {res[key]} against the "
-              f"trainer's eval {same[key]}")
+    # cli.test_main: the test set, then the 300 spiral val views
+    res, same, test_main_s = check_test_main("neural3d", tr, dev)
     val = os.path.join(model, "val", f"ours_{cfg.iterations}", "renders")
     n_val = len(os.listdir(val)) if os.path.isdir(val) else 0
     check(len(info.val_cameras) == n_val == 300,
@@ -2178,58 +2132,20 @@ def neural3d_phase(dev, tk, timing):
 
     # the grown state: two identical steps, K4 on that step's xy and xt
     # plane gradients, then train_step_core alone over 8 steps
-    batch = first_batch(tr)
-    step = core_step(tr, batch, st.step + 1)
+    step = core_step(tr, first_batch(tr), st.step + 1)
     _, taps = same_two_steps("neural3d: a step of the grown state", step, st)
     k4 = plane_k4("neural3d", taps, f"at {rows} rows", timing)
     del taps
+    core_ips, _ = core_its("neural3d", step, st)
 
-    def core(state):
-        state, m = step(state)
-        check(m["bad_step"] == 0 and m["dropped"] == 0,
-              f"neural3d: a train_step_core step went wrong: {m}")
-        return state
-    state = core(step_mod.clone_state(st))
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(8):
-        state = core(state)
-    sync()
-    core_its = 8 / (time.perf_counter() - t0)
-    del state
-
-    # the loader's decode: capture-size PNG to the training size, a batch
-    loader = tr.scene.train_loader(cfg.batch, num_workers=1)
-    try:
-        n_train = len(info.train_cameras)
-        t0 = time.perf_counter()
-        for i in range(5):
-            loader._load_batch((np.arange(cfg.batch) * 37 + i * 101)
-                               % n_train)
-        decode_ms = (time.perf_counter() - t0) * 1e3 / 5
-    finally:
-        loader.close()
-
-    # 5 iterations of the loop under torch.profiler: the card's busy share
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sync()
-        t0 = time.perf_counter()
-        tr.run(max_iterations=cfg.iterations + 5, log_every=10 ** 6)
-        sync()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / 5
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / 5
-    check(tr.state.bad_steps == 0 and tr.state.dropped_hwm == 0,
-          "neural3d: the traced iterations went wrong")
-    log(f"neural3d: train_step_core alone {core_its:.3f} it/s on the grown "
-        f"state ({rows} rows); loader decode {decode_ms:.1f} ms a batch of "
+    # the loader's decode: capture-size PNG to the training size, a batch;
+    # the busy share
+    dec_ms = decode_ms(tr, 37, 101)
+    busy_ms, traced_ms, busy = busy_share("neural3d", tr)
+    log(f"neural3d: train_step_core alone {core_ips:.3f} it/s on the grown "
+        f"state ({rows} rows); loader decode {dec_ms:.1f} ms a batch of "
         f"{cfg.batch} ({n3d.N3D_W}x{n3d.N3D_H} PNG -> {W}x{H}, {decoder}); "
-        f"card busy {busy_ms:.2f} ms of {traced_ms:.2f} ms an iteration "
-        "under the profiler "
-        + (f"({100 * busy_ms / traced_ms:.1f}%)" if busy_ms > 0 else
-           "(no device time reported: not measured)"))
+        f"{busy}")
 
     phase_s = time.perf_counter() - t_phase
     signal.alarm(0)
@@ -2246,11 +2162,11 @@ def neural3d_phase(dev, tk, timing):
         "test_views": len(info.test_cameras),
         "val_views": len(info.val_cameras), "decoder": decoder,
         "scene_written": written["written"], "write_s": write_s,
-        "build_s": built, "recount": recount,
+        "points3d_parse_s": parse_s, "build_s": built, "recount": recount,
         "alive_preprocessed": pre["alive_preprocessed"],
         "alive_start": pre["alive_start"], "run_s": run_s,
-        "its_per_s_50_500": dyn, "train_step_core_its_per_s": core_its,
-        "decode_ms_per_batch": decode_ms, "densify_ms": timed,
+        "its_per_s_50_500": dyn, "train_step_core_its_per_s": core_ips,
+        "decode_ms_per_batch": dec_ms, "densify_ms": timed,
         "densify": tr.densify_log, "growths": grown, "zprune": zpruned,
         "overflows": tr.overflows,
         "max_instances": [pre["max_instances"], tr.rcfg.max_instances],
@@ -2282,18 +2198,15 @@ def dnerf_phase(dev, tk, timing):
     scene is tests/torch_dnerf_scene.py's, written under
     build/chip_smoke_dnerf/ (150 training and 20 test frames of 800x800
     RGBA rendered by the port, no points3d.ply: the reader draws its
-    random init); without the native library's image headers the Python
-    decode runs (SARO_NATIVE=0).  Returns (the "dnerf" results, the
-    kernels' launches over run a)."""
+    random init); without the image library the images decode through
+    PIL.  Returns (the "dnerf" results, the kernels' launches over run
+    a)."""
     import signal
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from saro_gs_torch import cli, native, render
+    from saro_gs_torch import cli, native
     from saro_gs_torch import eval as eval_mod
     from saro_gs_torch import scene as scene_mod
-    from saro_gs_torch.data import readers
-    from saro_gs_torch.train import step as step_mod
     from saro_gs_torch.train.trainer import Trainer
     from tests import torch_dnerf_scene as dnerf
 
@@ -2309,9 +2222,7 @@ def dnerf_phase(dev, tk, timing):
         torch.cuda.synchronize()
 
     t_phase = t0 = time.perf_counter()
-    if not all(header_found(h) for h in ("png.h", "jpeglib.h")):
-        os.environ["SARO_NATIVE"] = "0"
-    decoder = "native" if native.available() else "PIL (SARO_NATIVE=0)"
+    decoder = image_decoder(native)
     root = os.path.join(DNERF_DIR, "scene")
     written = dnerf.write_dnerf_scene(root, dev)
     sync()
@@ -2403,22 +2314,13 @@ def dnerf_phase(dev, tk, timing):
         Trainer.run = originals["run"]
         eval_mod.Evaluator.render_view = originals["render"]
     cfg, st = tr.cfg, tr.state
-    hist = {h["it"]: h for h in tr.history}
-    check(st.step == cfg.iterations, f"dnerf: stopped at {st.step}")
-    check(st.bad_steps == 0 and not any("bad_step" in h for h in tr.history),
-          f"dnerf: {st.bad_steps} bad steps")
-    check(hist[1]["loss"] == pre["loss_step1"],
-          f"dnerf: iteration 1 logged loss {hist[1]['loss']}, the checked "
-          f"first step {pre['loss_step1']}")
+    hist, report = run_checks("dnerf", tr, pre, eval_dropped, launches)
     pass_its = [i for i in range(1, cfg.iterations + 1)
                 if cfg.densify_from_iter < i < cfg.densify_until_iter
                 and i % cfg.densification_interval == 0]
     its = [d["it"] for d in tr.densify_log]
     check(its == pass_its and len(its) == 16,
           f"dnerf: densify ran at {its}, expected {pass_its}")
-    for d in tr.densify_log:
-        check(d["after"] == d["before"] + d["cloned"] + d["split"]
-              - d["pruned"], f"dnerf: densify counts do not add up: {d}")
     # one entry an iteration (a pass that overflows runs again after the
     # growth)
     sizes = sorted({i: size for i, size, _ in passes}.items())
@@ -2435,22 +2337,6 @@ def dnerf_phase(dev, tk, timing):
     check(refreshes == refresh_its,
           f"dnerf: integral refreshes at {refreshes}, expected "
           f"{refresh_its}")
-    check(all(hwm > 0 for _, hwm in tr.overflows)
-          and tr.rcfg.max_instances
-          == pre["max_instances"] << len(tr.overflows),
-          f"dnerf: overflow doublings {tr.overflows} do not account for "
-          f"max_instances {pre['max_instances']} -> {tr.rcfg.max_instances}")
-    check(eval_dropped and not any(eval_dropped),
-          f"dnerf: eval views reported with instances dropped: "
-          f"{eval_dropped}")
-    check(all(launches[k_] > 0 for k_ in launches),
-          f"dnerf: a kernel never launched in the run: {launches}")
-    with open(os.path.join(model,
-                           f"{cfg.iterations}_runtimeresults.json")) as f:
-        report = json.load(f)
-    check(report["PSNR"] > pre["psnr_init"],
-          f"dnerf: test PSNR {report['PSNR']} at {cfg.iterations}, "
-          f"{pre['psnr_init']} from the initial state")
     a, b = 50, cfg.static_iteration
     static_its = (b - a) / (hist[b]["elapsed_s"] - hist[a]["elapsed_s"])
     c, e = cfg.static_iteration + 50, max(hist)
@@ -2476,47 +2362,15 @@ def dnerf_phase(dev, tk, timing):
     info = tr.scene.info
     cam = info.test_cameras[len(info.test_cameras) // 2]
     width, height = cam.width, cam.height
-    loaded = scene_mod.Scene(cfg, load_iteration=str(cfg.iterations),
-                             device=dev)
     bg = torch.ones(3, device=dev)
-    rcfg = cfg.raster_config()._replace(max_instances=tr.rcfg.max_instances)
-    outs = []
-    for p, n_, al, fs in ((st.points, st.nets, st.alive, tr.scene.fstatic),
-                          (loaded.params, loaded.nets, loaded.alive,
-                           loaded.fstatic)):
-        out, _ = render.test_render(cam.raster_params(dev), cam.timestamp, p,
-                                    n_, al, tr.mcfg, fs, bg, width=width,
-                                    height=height, sh_degree=cfg.sh_degree,
-                                    rcfg=rcfg)
-        check(out.num_dropped == 0, "dnerf: the check render dropped")
-        outs.append(out)
-    check(all(torch.equal(getattr(outs[0], k_), getattr(outs[1], k_))
-              for k_ in ("color", "depth", "final_t")),
-          "dnerf: the reloaded checkpoint renders differently")
-    log(f"dnerf: checkpoint {cfg.iterations} ({loaded.alive.shape[0]} rows) "
-        f"renders test view {cam.image_name} at t {cam.timestamp:.4f} as "
-        f"the trainer's state does, to the bit")
+    rcfg, out = reload_check("dnerf", tr, cam, bg, dev)
     # run (c) holds its loaded state to this render of run (a)'s last one
     view = dict(cam=cam, rcfg=rcfg, sh_degree=cfg.sh_degree,
-                **{k_: getattr(outs[0], k_) for k_ in ("color", "depth",
-                                                       "final_t")})
-    del loaded, outs
+                **{k_: getattr(out, k_) for k_ in ("color", "depth",
+                                                   "final_t")})
+    del out
 
-    # cli.test_main against the trainer's eval of the same state at
-    # test_main's SH degree
-    sh_now, tr.active_sh_degree = tr.active_sh_degree, cfg.sh_degree
-    same = eval_mod.quick_test_report(tr, tr.scene.test_cameras(),
-                                      histograms=False)
-    tr.active_sh_degree = sh_now
-    t0 = time.perf_counter()
-    res = cli.test_main(["-m", model, "--iteration", str(cfg.iterations),
-                         "--device", str(dev)])
-    sync()
-    test_main_s = time.perf_counter() - t0
-    for key in ("PSNR", "SSIM", "MS-SSIM"):
-        check(abs(res[key] - same[key]) <= 1e-6 * abs(same[key]),
-              f"dnerf: test_main's {key} {res[key]} against the trainer's "
-              f"eval {same[key]}")
+    res, same, test_main_s = check_test_main("dnerf", tr, dev)
     check(res["num_views"] == len(info.test_cameras),
           f"dnerf: test_main rendered {res['num_views']} views")
     log(f"dnerf: cli.test_main in {test_main_s:.1f} s: {json.dumps(res)}; "
@@ -2532,61 +2386,27 @@ def dnerf_phase(dev, tk, timing):
                        tk, timing, width=width, height=height)
     del d, pre_frame
 
-    # train_step_core alone over 8 dynamic steps of the trained state
+    # train_step_core alone over 8 dynamic steps of the trained state, then
+    # 3 with the stage marks
     step = core_step(tr, first_batch(tr), st.step + 1)
-
-    def core(state):
-        state, m = step(state)
-        check(m["bad_step"] == 0 and m["dropped"] == 0,
-              f"dnerf: a train_step_core step went wrong: {m}")
-        return state
-    state = core(step_mod.clone_state(st))
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(8):
-        state = core(state)
-    sync()
-    core_its = 8 / (time.perf_counter() - t0)
+    core_ips, state = core_its("dnerf", step, st)
     with timing.record() as rec:
         for _ in range(3):
-            state = core(state)
+            state, m = step(state)
+            check(m["bad_step"] == 0 and m["dropped"] == 0,
+                  f"dnerf: a train_step_core step went wrong: {m}")
     stages = {k: v / 3 for k, v in rec.stages().items()}
     del state
 
-    # the loader's decode: 800x800 RGBA PNG to 400x400 over white, a batch
-    loader = tr.scene.train_loader(cfg.batch, num_workers=1)
-    try:
-        n_train = len(info.train_cameras)
-        t0 = time.perf_counter()
-        for i in range(5):
-            loader._load_batch((np.arange(cfg.batch) * 37 + i * 11)
-                               % n_train)
-        decode_ms = (time.perf_counter() - t0) * 1e3 / 5
-    finally:
-        loader.close()
-
-    # 5 iterations of the loop under torch.profiler: the card's busy share
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sync()
-        t0 = time.perf_counter()
-        tr.run(max_iterations=cfg.iterations + 5, log_every=10 ** 6)
-        sync()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / 5
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / 5
-    check(tr.state.bad_steps == 0 and tr.state.dropped_hwm == 0,
-          "dnerf: the traced iterations went wrong")
-    log(f"dnerf: train_step_core alone {core_its:.3f} it/s; ms per step by "
+    # the loader's decode: 800x800 RGBA PNG to 400x400 over white, a
+    # batch; the busy share
+    dec_ms = decode_ms(tr, 37, 11)
+    busy_ms, traced_ms, busy = busy_share("dnerf", tr)
+    log(f"dnerf: train_step_core alone {core_ips:.3f} it/s; ms per step by "
         "stage " + json.dumps({k: round(v, 3) for k, v in stages.items()})
         + f" (sum {sum(stages.values()):.2f}); loader decode "
-        f"{decode_ms:.1f} ms a batch of {cfg.batch} ({full['width']}x"
-        f"{full['height']} RGBA PNG -> {width}x{height}, {decoder}); card "
-        f"busy {busy_ms:.2f} ms of {traced_ms:.2f} ms an iteration under "
-        "the profiler "
-        + (f"({100 * busy_ms / traced_ms:.1f}%)" if busy_ms > 0 else
-           "(no device time reported: not measured)"))
+        f"{dec_ms:.1f} ms a batch of {cfg.batch} ({full['width']}x"
+        f"{full['height']} RGBA PNG -> {width}x{height}, {decoder}); {busy}")
     planes = [list(p.shape) for p in st.nets.field.planes]
     densify_log, overflows = tr.densify_log, tr.overflows
     sh_degree = tr.active_sh_degree
@@ -2617,8 +2437,8 @@ def dnerf_phase(dev, tk, timing):
         "build_s": built["scene"], "init_points": pre["init_points"],
         "run_s": run_s, "its_per_s_static_50_1000": static_its,
         "its_per_s_dynamic_1050_2100": dynamic_its,
-        "train_step_core_its_per_s": core_its, "stages_ms": stages,
-        "decode_ms_per_batch": decode_ms, "densify_ms": densify_ms,
+        "train_step_core_its_per_s": core_ips, "stages_ms": stages,
+        "decode_ms_per_batch": dec_ms, "densify_ms": densify_ms,
         "densify": densify_log, "size_thresholded": [i for i, s in sizes
                                                      if s],
         "resets": resets, "refreshes": len(refreshes), "sh_degree": sh_degree,
@@ -2910,6 +2730,279 @@ def dnerf_doubling(root, config_file, dev):
             "loss_last": hist[b]["loss"]}
 
 
+def hypernerf_phase(dev, tk, timing):
+    """Phase 19: the HyperNeRF training mode on the card.
+    configs/dnerf/standup.json's model and training settings with
+    HYPERNERF_SCHEDULE's keys (and the paths) changed: the hypernerf
+    reader at resolution 2 on black, duration 100, 610 of 20,000
+    iterations, static until 300, densify from 200 every 100 (passes at
+    300, 400, 500 and 600), test and save at 610; through cli.train_main
+    and cli.test_main.  Everything else is the file's or the defaults:
+    batch 4, planes 64^3 x 128 of 32 channels, densify 5, capacity
+    262,144, max_instances presized.  The scene is
+    tests/torch_hypernerf_scene.py's vrig layout, written under
+    build/chip_smoke_hypernerf/ (100 time steps x 2 rig cameras at
+    536x960, a points.npy of 20,000 points).  Returns (the "hypernerf"
+    results, the kernels' launches over the run)."""
+    import signal
+
+    import torch
+    from saro_gs_torch import cli, native
+    from saro_gs_torch import eval as eval_mod
+    from saro_gs_torch import scene as scene_mod
+    from saro_gs_torch.train.trainer import Trainer
+    from tests import torch_hypernerf_scene as vrig
+
+    def over_time(signum, frame):
+        print(f"[chip_smoke] FAIL: hypernerf: the phase ran past its "
+              f"{HYPERNERF_LIMIT_S} s", file=sys.stderr, flush=True)
+        stop_children()
+        os._exit(1)
+    signal.signal(signal.SIGALRM, over_time)
+    signal.alarm(HYPERNERF_LIMIT_S)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    t_phase = t0 = time.perf_counter()
+    decoder = image_decoder(native)
+    root = os.path.join(HYPERNERF_DIR, "scene")
+    written = vrig.write_hypernerf_scene(root, dev)
+    sync()
+    write_s = time.perf_counter() - t0
+    full = vrig.FULL
+    log(f"hypernerf: vrig layout of {full['steps']} time steps x 2 cameras "
+        f"at {full['width'] // vrig.RATIO}x{full['height'] // vrig.RATIO} "
+        f"(rgb/{vrig.RATIO}x of {full['width']}x{full['height']}) "
+        f"{'written' if written['written'] else 'reused'} in {write_s:.1f} "
+        f"s under {root}; image decode {decoder}")
+
+    model = os.path.join(HYPERNERF_DIR, "model")
+    shutil.rmtree(model, ignore_errors=True)
+    with open(HYPERNERF_CONFIG) as f:
+        config = json.load(f)
+    config.update(HYPERNERF_SCHEDULE, source_path=root, model_path=model)
+    cfg_path = os.path.join(HYPERNERF_DIR, "standup_hypernerf_610.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+
+    # wrapped for the run: the scene build timed, each densify pass timed,
+    # eval renders' drops, the checks on the initial state
+    built, passes, eval_dropped, pre = {}, [], [], {}
+    originals = {"scene": scene_mod.Scene.__init__,
+                 "_densify": Trainer._densify, "run": Trainer.run,
+                 "render": eval_mod.Evaluator.render_view}
+
+    def scene_init(self, *a, **k):
+        sync()
+        t = time.perf_counter()
+        originals["scene"](self, *a, **k)
+        sync()
+        built.setdefault("scene", time.perf_counter() - t)
+
+    def densify(self, size):
+        sync()
+        t = time.perf_counter()
+        out = originals["_densify"](self, size)
+        sync()
+        passes.append(round((time.perf_counter() - t) * 1e3, 1))
+        return out
+
+    def eval_render(self, *a, **k):
+        # a view as the eval reports it, after any render at a larger
+        # capacity
+        out = originals["render"](self, *a, **k)
+        eval_dropped.append(out[0].num_dropped)
+        return out
+
+    def run(self, *a, **k):
+        if not pre:
+            pre.update(hypernerf_initial_checks(self, timing, root))
+            tk.reset_launches()
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        return originals["run"](self, *a, **k)
+    scene_mod.Scene.__init__, Trainer._densify = scene_init, densify
+    Trainer.run, eval_mod.Evaluator.render_view = run, eval_render
+    t0 = time.perf_counter()
+    try:
+        tr = cli.train_main(["-s", root, "--config", cfg_path, "-m", model,
+                             "--device", str(dev)])
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = dict(tk.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        scene_mod.Scene.__init__ = originals["scene"]
+        Trainer._densify = originals["_densify"]
+        Trainer.run = originals["run"]
+        eval_mod.Evaluator.render_view = originals["render"]
+    cfg, st = tr.cfg, tr.state
+    hist, report = run_checks("hypernerf", tr, pre, eval_dropped, launches)
+    its = [d["it"] for d in tr.densify_log]
+    check(its == [300, 400, 500, 600],
+          f"hypernerf: densify ran at {its}, expected 300 to 600")
+    a, b = 50, cfg.static_iteration
+    static_its = (b - a) / (hist[b]["elapsed_s"] - hist[a]["elapsed_s"])
+    c, e = cfg.static_iteration + 50, max(hist)
+    dynamic_its = (e - c) / (hist[e]["elapsed_s"] - hist[c]["elapsed_s"])
+    first, last = hist[1]["loss"], max(hist.items())[1]["loss"]
+    log(f"hypernerf: {cfg.iterations} iterations in {run_s:.1f} s "
+        f"({static_its:.3f} it/s over iterations {a} to {b}, static; "
+        f"{dynamic_its:.3f} it/s over {c} to {e}, dynamic), loss "
+        f"{first:.5f} -> {last:.5f}; scene built in {built['scene']:.2f} s; "
+        f"densify {tr.densify_log} in {passes} ms; {tr.n_alive()} points, "
+        f"capacity {st.alive.shape[0]}, max_instances "
+        f"{pre['max_instances']} presized -> {tr.rcfg.max_instances} "
+        f"(doublings {tr.overflows}); test PSNR {pre['psnr_init']:.3f} at "
+        f"the start -> {report['PSNR']:.3f} (SH degree "
+        f"{tr.active_sh_degree}); peak memory {peak_gib:.2f} GiB; launches "
+        f"{launches}")
+
+    # (e) the checkpoint and cli.test_main
+    info = tr.scene.info
+    cam = info.test_cameras[len(info.test_cameras) // 2]
+    bg = torch.zeros(3, device=dev)
+    rcfg, _ = reload_check("hypernerf", tr, cam, bg, dev)
+    res, same, test_main_s = check_test_main("hypernerf", tr, dev)
+    check(res["num_views"] == len(info.test_cameras),
+          f"hypernerf: test_main rendered {res['num_views']} views")
+    log(f"hypernerf: cli.test_main in {test_main_s:.1f} s: "
+        f"{json.dumps(res)}; the trainer's eval of that state at SH "
+        f"{cfg.sh_degree} "
+        + json.dumps({k_: same[k_] for k_ in ("PSNR", "SSIM", "MS-SSIM")}))
+
+    # (d) K2, K1 and K3 on that view of the trained state, on black
+    d, pre_frame = stage_frame(st.points, st.nets, st.alive, tr.mcfg,
+                               tr.scene.fstatic, cam.raster_params(dev),
+                               cam.timestamp, rcfg, width=cam.width,
+                               height=cam.height)
+    fk = frame_kernels("hypernerf", d, pre_frame, rcfg.max_instances, bg,
+                       rcfg, tk, timing, width=cam.width, height=cam.height)
+    del d, pre_frame
+
+    # train_step_core alone over 8 dynamic steps of the trained state; the
+    # loader's decode of 536x960 RGB PNGs; the busy share
+    its_core, _ = core_its("hypernerf",
+                           core_step(tr, first_batch(tr), st.step + 1), st)
+    dec_ms = decode_ms(tr, 23, 11)
+    busy_ms, traced_ms, busy = busy_share("hypernerf", tr)
+    log(f"hypernerf: train_step_core alone {its_core:.3f} it/s; loader "
+        f"decode {dec_ms:.1f} ms a batch of {cfg.batch} ({cam.width}x"
+        f"{cam.height} RGB PNG, {decoder}); {busy}")
+
+    phase_s = time.perf_counter() - t_phase
+    signal.alarm(0)
+    log(f"hypernerf: the phase took {phase_s:.1f} s (limit "
+        f"{HYPERNERF_LIMIT_S} s); card {smi_line()}")
+    return {
+        "config": os.path.relpath(HYPERNERF_CONFIG, HERE),
+        "schedule": HYPERNERF_SCHEDULE, "iterations": cfg.iterations,
+        "batch": cfg.batch, "resolution": [cam.width, cam.height],
+        "capture": [full["width"], full["height"]],
+        "planes": [list(p.shape) for p in st.nets.field.planes],
+        "train_views": len(info.train_cameras),
+        "test_views": len(info.test_cameras), "decoder": decoder,
+        "scene_written": written["written"], "write_s": write_s,
+        "build_s": built["scene"], "init_points": pre["init_points"],
+        "cameras_off_recount": pre["cameras"], "run_s": run_s,
+        "its_per_s_static_50_300": static_its,
+        "its_per_s_dynamic_350_600": dynamic_its,
+        "train_step_core_its_per_s": its_core,
+        "decode_ms_per_batch": dec_ms, "densify_ms": passes,
+        "densify": tr.densify_log, "overflows": tr.overflows,
+        "max_instances": [pre["max_instances"], rcfg.max_instances],
+        "points_final": tr.n_alive(), "capacity": st.alive.shape[0],
+        "loss_first": first, "loss_last": last,
+        "psnr_init": pre["psnr_init"],
+        "eval": {k_: report[k_] for k_ in ("PSNR", "SSIM", "MS-SSIM")},
+        "test_main": {k_: res[k_] for k_ in ("PSNR", "SSIM", "MS-SSIM",
+                                             "LPIPS-alex", "FPS")},
+        "test_main_s": test_main_s, "peak_memory_gib": peak_gib,
+        "card_busy_ms_per_it": busy_ms or None, "traced_ms_per_it": traced_ms,
+        "launches": launches, "k4": pre["k4"], "frame": fk,
+        "phase_s": phase_s}, launches
+
+
+def hypernerf_initial_checks(tr, timing, root):
+    """Phase 19 on the trainer's initial state and the run's first batch:
+    (a) 100 train and 100 test cameras whose FoVs, centres, sizes and
+    timestamps agree with the numpy recount of the layout's JSON files
+    (the train split camera 0's, the test split camera 1's), both rig
+    cameras of a time step at one timestamp, the init cloud
+    points.npy's (t 0.5, grey), every point alive in 262,144 rows;
+    (b) two identical first steps equal to the bit, static (iteration 1)
+    and dynamic (the stage of iteration 301), nothing dropped, and K4 on
+    the dynamic step's own grid gradients of the xy plane (64x64, 6
+    levels, 5,461 cells) and the xt plane (64x128, 8,192 cells), both
+    sorted in 2 radix passes; the test views' PSNR.  Returns what the run
+    is held to."""
+    from saro_gs_torch import eval as eval_mod
+    from tests import torch_hypernerf_scene as vrig
+    info = tr.scene.info
+    recount = vrig.recount_cameras(root)
+    steps = vrig.FULL["steps"]
+    size = (vrig.FULL["width"] // vrig.RATIO,
+            vrig.FULL["height"] // vrig.RATIO)
+    worst = {"fov": 0.0, "centre": 0.0}
+    for split, cams in (("train", info.train_cameras),
+                        ("test", info.test_cameras)):
+        rc = recount[split]
+        check(len(cams) == len(rc) == steps,
+              f"hypernerf: {len(cams)} {split} cameras, {len(rc)} in the "
+              f"recount")
+        for cam, r in zip(cams, rc):
+            check(cam.image_name == r["id"] and (cam.width, cam.height)
+                  == (r["width"], r["height"]) == size
+                  and cam.timestamp == r["timestamp"],
+                  f"hypernerf: {split} camera {cam.image_name} ({cam.width}x"
+                  f"{cam.height}, t {cam.timestamp}) against the recount "
+                  f"{r['id']} ({r['width']}x{r['height']}, t "
+                  f"{r['timestamp']})")
+            worst["fov"] = max(worst["fov"], abs(cam.fovx - r["fovx"]),
+                               abs(cam.fovy - r["fovy"]))
+            worst["centre"] = max(worst["centre"], float(np.abs(
+                cam.camera_center - r["centre"]).max()))
+    check(worst["fov"] <= 1e-6 and worst["centre"] <= 1e-5,
+          f"hypernerf: cameras off the recount by {worst} (limits 1e-6 "
+          "rad, 1e-5)")
+    check([c.timestamp for c in info.train_cameras]
+          == [c.timestamp for c in info.test_cameras]
+          == [t / (steps - 1) for t in range(steps)],
+          "hypernerf: the rig cameras of a time step differ in timestamp")
+    pc = info.point_cloud
+    pts, cols, times = vrig.recount_init_cloud(root)
+    check(np.array_equal(pc.points, pts) and np.array_equal(pc.colors, cols)
+          and np.array_equal(pc.times, times),
+          "hypernerf: the init cloud differs from points.npy at t 0.5, "
+          "grey")
+    alive, cap = tr.n_alive(), tr.state.alive.shape[0]
+    check(alive == vrig.FULL["points"] and cap == tr.cfg.capacity == 262144,
+          f"hypernerf: {alive} points alive in {cap} rows")
+    check(tr.active_sh_degree == 0, "hypernerf: the run starts above SH 0")
+    batch = first_batch(tr)
+    ma, _ = same_two_steps("hypernerf: first static step",
+                           core_step(tr, batch, 1), tr.state)
+    _, taps = same_two_steps(
+        "hypernerf: first dynamic step",
+        core_step(tr, batch, tr.cfg.static_iteration + 1), tr.state)
+    k4 = plane_k4("hypernerf", taps, "at the first dynamic step", timing,
+                  passes=2)
+    del taps
+    psnr = eval_mod.quick_test_report(tr, tr.scene.test_cameras(),
+                                      histograms=False)["PSNR"]
+    log(f"hypernerf: {len(info.train_cameras)} train and "
+        f"{len(info.test_cameras)} test cameras at {size[0]}x{size[1]} "
+        f"equal to the recount (FoV within {worst['fov']:.3g} rad, centres "
+        f"within {worst['centre']:.3g}); init cloud of {pc.points.shape[0]} "
+        f"points equal to points.npy at t 0.5, grey; {alive} alive in {cap} "
+        f"rows; the initial state renders the test views at {psnr:.3f} dB; "
+        f"max_instances {tr.rcfg.max_instances} after the presize")
+    return {"loss_step1": ma["loss"], "k4": k4, "psnr_init": psnr,
+            "init_points": pc.points.shape[0], "capacity": cap,
+            "max_instances": tr.rcfg.max_instances, "cameras": worst}
+
+
 def turned_c2w(c2w, degrees):
     """``c2w`` turned about the world's z axis through the camera's
     centre."""
@@ -3109,6 +3202,162 @@ def n3d_initial_checks(tr, recount, preprocessed, root):
     return {"loss_step1": ma["loss"], "psnr_init": psnr,
             "alive_start": alive, "capacity": cap,
             "max_instances": tr.rcfg.max_instances}
+
+
+def run_checks(label, tr, pre, eval_dropped, launches):
+    """What a trainer phase holds its run through cli.train_main to: the
+    last iteration reached, no bad step, iteration 1's logged loss the
+    checked first step's (``pre["loss_step1"]``), each densify pass's
+    counts adding up, the overflow doublings accounting for the final
+    max_instances (a view that dropped instances doubles it at the next
+    check), no reported eval view with instances dropped, every kernel
+    launched, the test PSNR at the end above the initial state's.
+    Returns (the history by iteration, the eval report at the end)."""
+    cfg, st = tr.cfg, tr.state
+    hist = {h["it"]: h for h in tr.history}
+    check(st.step == cfg.iterations, f"{label}: stopped at {st.step}")
+    check(st.bad_steps == 0 and not any("bad_step" in h for h in tr.history),
+          f"{label}: {st.bad_steps} bad steps")
+    check(hist[1]["loss"] == pre["loss_step1"],
+          f"{label}: iteration 1 logged loss {hist[1]['loss']}, the checked "
+          f"first step {pre['loss_step1']}")
+    for d in tr.densify_log:
+        check(d["after"] == d["before"] + d["cloned"] + d["split"]
+              - d["pruned"], f"{label}: densify counts do not add up: {d}")
+    check(all(hwm > 0 for _, hwm in tr.overflows)
+          and tr.rcfg.max_instances
+          == pre["max_instances"] << len(tr.overflows),
+          f"{label}: overflow doublings {tr.overflows} do not account for "
+          f"max_instances {pre['max_instances']} -> {tr.rcfg.max_instances}")
+    check(eval_dropped and not any(eval_dropped),
+          f"{label}: eval views reported with instances dropped: "
+          f"{eval_dropped}")
+    check(all(launches[k] > 0 for k in launches),
+          f"{label}: a kernel never launched in the run: {launches}")
+    with open(os.path.join(cfg.model_path,
+                           f"{cfg.iterations}_runtimeresults.json")) as f:
+        report = json.load(f)
+    check(report["PSNR"] > pre["psnr_init"],
+          f"{label}: test PSNR {report['PSNR']} at {cfg.iterations}, "
+          f"{pre['psnr_init']} from the initial state")
+    return hist, report
+
+
+def reload_check(label, tr, cam, bg, dev):
+    """The checkpoint of the run's last iteration, loaded through Scene,
+    renders ``cam`` at its size as the trainer's final state does: colour,
+    depth and final T equal to the bit, nothing dropped.  Returns (the
+    raster config of that render, the state's render)."""
+    import torch
+    from saro_gs_torch import render
+    from saro_gs_torch import scene as scene_mod
+    cfg, st = tr.cfg, tr.state
+    loaded = scene_mod.Scene(cfg, load_iteration=str(cfg.iterations),
+                             device=dev)
+    rcfg = cfg.raster_config()._replace(max_instances=tr.rcfg.max_instances)
+    outs = []
+    for p, n_, al, fs in ((st.points, st.nets, st.alive, tr.scene.fstatic),
+                          (loaded.params, loaded.nets, loaded.alive,
+                           loaded.fstatic)):
+        out, _ = render.test_render(cam.raster_params(dev), cam.timestamp, p,
+                                    n_, al, tr.mcfg, fs, bg, width=cam.width,
+                                    height=cam.height,
+                                    sh_degree=cfg.sh_degree, rcfg=rcfg)
+        check(out.num_dropped == 0, f"{label}: the check render dropped")
+        outs.append(out)
+    check(all(torch.equal(getattr(outs[0], k), getattr(outs[1], k))
+              for k in ("color", "depth", "final_t")),
+          f"{label}: the reloaded checkpoint renders differently")
+    log(f"{label}: checkpoint {cfg.iterations} ({loaded.alive.shape[0]} "
+        f"rows) renders test view {cam.image_name} at t {cam.timestamp:.4f} "
+        "as the trainer's state does, to the bit")
+    return rcfg, outs[0]
+
+
+def check_test_main(label, tr, dev):
+    """cli.test_main of the run's last checkpoint against the trainer's
+    eval of the same state at test_main's SH degree (the trainer's own
+    eval renders at the active one): PSNR, SSIM and MS-SSIM within 1e-6.
+    Returns (test_main's report, the eval's, test_main's seconds)."""
+    import torch
+    from saro_gs_torch import cli
+    from saro_gs_torch import eval as eval_mod
+    cfg = tr.cfg
+    sh_now, tr.active_sh_degree = tr.active_sh_degree, cfg.sh_degree
+    same = eval_mod.quick_test_report(tr, tr.scene.test_cameras(),
+                                      histograms=False)
+    tr.active_sh_degree = sh_now
+    t0 = time.perf_counter()
+    res = cli.test_main(["-m", cfg.model_path, "--iteration",
+                         str(cfg.iterations), "--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for key in ("PSNR", "SSIM", "MS-SSIM"):
+        check(abs(res[key] - same[key]) <= 1e-6 * abs(same[key]),
+              f"{label}: test_main's {key} {res[key]} against the trainer's "
+              f"eval {same[key]}")
+    return res, same, secs
+
+
+def core_its(label, step, state, n=8):
+    """train_step_core alone: a warm-up step from a copy of ``state``, then
+    ``n`` timed, none bad or dropping.  Returns (it/s, the last state)."""
+    import torch
+    from saro_gs_torch.train import step as step_mod
+
+    def core(s):
+        s, m = step(s)
+        check(m["bad_step"] == 0 and m["dropped"] == 0,
+              f"{label}: a train_step_core step went wrong: {m}")
+        return s
+    state = core(step_mod.clone_state(state))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state = core(state)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0), state
+
+
+def decode_ms(tr, stride, shift):
+    """The loader's decode in the calling thread, ms a batch over 5
+    batches: views (stride * k + shift * i) mod the training views, for
+    k < batch, of batch i."""
+    loader = tr.scene.train_loader(tr.cfg.batch, num_workers=1)
+    n_train = len(tr.scene.info.train_cameras)
+    try:
+        t0 = time.perf_counter()
+        for i in range(5):
+            loader._load_batch((np.arange(tr.cfg.batch) * stride + i * shift)
+                               % n_train)
+        return (time.perf_counter() - t0) * 1e3 / 5
+    finally:
+        loader.close()
+
+
+def busy_share(label, tr):
+    """5 more iterations of the trainer's loop under torch.profiler, none
+    bad or dropping.  Returns the card's busy ms and the wall ms an
+    iteration, and those words for a log line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(max_iterations=tr.cfg.iterations + 5, log_every=10 ** 6)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / 5
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / 5
+    check(tr.state.bad_steps == 0 and tr.state.dropped_hwm == 0,
+          f"{label}: the traced iterations went wrong")
+    words = (f"card busy {busy_ms:.2f} ms of {traced_ms:.2f} ms an iteration "
+             "under the profiler "
+             + (f"({100 * busy_ms / traced_ms:.1f}%)" if busy_ms > 0 else
+                "(no device time reported: not measured)"))
+    return busy_ms, traced_ms, words
 
 
 def first_batch(tr):
@@ -3484,18 +3733,18 @@ def frame_kernels(label, d, pre, cap, bg, rcfg, tk, timing, width=W,
                "bound_by": k3_by, "library_ms": None}}
 
 
-def bench_phase(card, dev, tk, timing):
-    """Phase 18 (module docstring): (a) the frame kernels and (b) K4 on
-    the bench scene, (c) the bench alone on the card.  Returns (results,
-    the kernels' launches in each of the bench's records)."""
+def bench_kernels_phase(dev, tk, timing):
+    """Phase 18 (a) and (b), in a process of its own where no profiler has
+    run before (start_phase("bench_kernels")): the frame kernels and K4 on
+    the bench scene.  Returns (results, the kernels' launches in it)."""
     import torch
     from saro_gs_torch import bench, render
     from saro_gs_torch.models import field as field_mod
     from saro_gs_torch.models import gaussians as gm
-    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
     scene = bench.bench_scene(BENCH_POINTS, device=dev)
     mcfg, params, nets, alive, fstatic, _ = scene
-    build_s = time.perf_counter() - t_phase
+    build_s = time.perf_counter() - t0
     cam = bench.bench_camera(W, H, dev)
     bg = torch.zeros(3, device=dev)
     with torch.no_grad():
@@ -3524,8 +3773,18 @@ def bench_phase(card, dev, tk, timing):
         name = "xyzt"[a] + "xyzt"[b]
         check(i in taps, f"bench: no grid gradient for plane {name}")
         k4[name] = k4_check(f"bench plane {name}", *taps[i], timing)
-    del scene, params, nets, alive, feat, tin, taps
-    torch.cuda.empty_cache()
+    return {"frame": fk, "k4": k4, "max_instances": cap,
+            "scene_build_s": build_s}, dict(tk.launches)
+
+
+def bench_phase(card, dev, tk, timing):
+    """Phase 18 (module docstring): (a) the frame kernels and (b) K4 on
+    the bench scene in a process of their own, then (c) the bench alone
+    on the card.  Returns (results, the kernels' launches in each of the
+    bench's records)."""
+    t_phase = time.perf_counter()
+    kern, _ = join_phase("bench_kernels", *start_phase("bench_kernels"))
+    kernels_s = time.perf_counter() - t_phase
 
     # ---- (c) the bench in a process of its own, alone on the card
     t0 = time.perf_counter()
@@ -3566,13 +3825,13 @@ def bench_phase(card, dev, tk, timing):
         f"instances, max_instances {head['max_instances']}), "
         f"{ckpt['value']:.2f} FPS ({ckpt['scene']}), "
         f"{train['value']:.3f} train steps/s; the process took {run_s:.1f} "
-        f"s, the phase {phase_s:.1f} s; card {card}")
+        f"s, the kernels' process {kernels_s:.1f} s, the phase "
+        f"{phase_s:.1f} s; card {card}")
     launches = {"render": head["launches"], "render_ckpt": ckpt["launches"],
                 "train": train["launches"]}
     return {"render_fps": head["value"], "render_fps_ckpt": ckpt["value"],
             "train_steps_per_s": train["value"], "records": records,
-            "frame": fk, "k4": k4, "max_instances": cap,
-            "scene_build_s": build_s, "process_s": run_s,
+            **kern, "kernels_process_s": kernels_s, "process_s": run_s,
             "phase_s": phase_s}, launches
 
 
@@ -3581,7 +3840,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
     sys.path.insert(0, HERE)
-    from saro_gs_torch import render, timing
+    from saro_gs_torch import native, render, timing
     from saro_gs_torch.data import cameras
     from saro_gs_torch.models import field as field_mod
     from saro_gs_torch.models import gaussians as gm
@@ -3602,6 +3861,15 @@ def main():
     # ---- 2. build ---------------------------------------------------------
     secs = tk.build(verbose=True)
     log(f"build: {secs:.2f} s (nvcc, {len(tk.launches)} kernels)")
+    # the native host library's core, built here on this host whatever a
+    # copied build/ holds, before any phase of its own process starts; the
+    # image library is phase 12's
+    for path in (native.SO_PATH, native.IMAGE_SO_PATH):
+        if os.path.exists(path):
+            os.remove(path)
+    core_build_s = native.build()
+    log(f"build: {core_build_s:.2f} s (g++, the native core library "
+        f"{native.SO_PATH})")
 
     # ---- the model ----------------------------------------------------------
     cfg, mcfg, params, nets, alive, fstatic, npts = load_arena(dev)
@@ -3912,7 +4180,8 @@ def main():
 
     # ---- 12. the arena trainer from disk ------------------------------------
     trainer_disk, disk_counts = disk_trainer_phase(
-        info, phase11["losses"], trainer["dynamic_its_per_s"], dev, tk)
+        info, phase11["losses"], trainer["dynamic_its_per_s"], core_build_s,
+        dev, tk)
     torch.cuda.empty_cache()
 
     # ---- 13. the parallel path ----------------------------------------------
@@ -3933,10 +4202,18 @@ def main():
     # ---- 15. the Neural3D training mode: its process's results -------------
     neural3d, n3d_counts = join_phase("neural3d", *n3d_proc)
 
+    # ---- 19. the HyperNeRF training mode, in a process of its own beside
+    # phase 16 once phase 15 has ended (beside both, phase 15 came within
+    # 50 s of its limit) -------------------------------------------------
+    hypernerf_proc = start_phase("hypernerf")
+
     # ---- 16. the D-NeRF training mode: its process's results ---------------
     dnerf, dnerf_counts = join_phase("dnerf", *dnerf_proc)
 
-    # ---- 19. summary --------------------------------------------------------
+    # ---- 19. the HyperNeRF training mode: its process's results ------------
+    hypernerf, hypernerf_counts = join_phase("hypernerf", *hypernerf_proc)
+
+    # ---- 20. summary --------------------------------------------------------
     k4m = k4[cases[0][0]]
     k4_row = {"max_abs_err": k4_err,
               "check": "<= 1e-5 of the output's max, two launches bit-equal",
@@ -3955,6 +4232,7 @@ def main():
          "launches_neural3d": n3d_counts[key],
          "launches_dnerf": dnerf_counts[key],
          "launches_dnerf_resume": dnerf["resume"]["launches"][key],
+         "launches_hypernerf": hypernerf_counts[key],
          "launches_eval_capacity": eval_counts[key],
          "launches_bench": {run: c[key] for run, c in bench_counts.items()},
          "launches_render": counts[key], **numbers}
@@ -3995,6 +4273,7 @@ def main():
     print(json.dumps({"phase": "stress", **stress}), flush=True)
     print(json.dumps({"phase": "neural3d", **neural3d}), flush=True)
     print(json.dumps({"phase": "dnerf", **dnerf}), flush=True)
+    print(json.dumps({"phase": "hypernerf", **hypernerf}), flush=True)
     print(json.dumps({"eval_capacity": eval_capacity}), flush=True)
     print(json.dumps({"bench": bench_res}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4043,7 +4322,8 @@ def phase_main(name, out):
 
 
 # the phases that can run in a process of their own
-PHASES = {"neural3d": neural3d_phase, "dnerf": dnerf_phase}
+PHASES = {"neural3d": neural3d_phase, "dnerf": dnerf_phase,
+          "hypernerf": hypernerf_phase, "bench_kernels": bench_kernels_phase}
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@ scripts/make_synth_scene.py).
 
 Host-side pose and intrinsics in numpy, with ``raster_params(device)``
 producing the tensors the rasterizer takes, and a lazily decoded ground
-truth image (the native library's decoder, PIL under ``SARO_NATIVE=0``).
+truth image (the native image library's decoder, PIL where it is off).
 Matrix conventions: row-vector, GL projection with the (f+n)/(f-n)
 variant, znear=0.01, zfar=100 (scene/cameras.py:84-101).
 """
@@ -66,11 +66,11 @@ class Camera:
     def load_image(self, white_background: bool = False,
                    size=None) -> np.ndarray:
         """The ground truth at ``size`` (default (width, height)):
-        [3, H, W] float32 in [0, 1], decoded by the native library (PIL
-        where it is off or refuses the file), Lanczos-resized if needed,
-        alpha composited over the background as scene/dataset.py:57-97
-        does; the image given to ``set_image`` if there is one (uint8
-        decoded as x / 255)."""
+        [3, H, W] float32 in [0, 1], decoded by the native image library
+        (PIL where it is off, ``native.image_lib``, or refuses the file),
+        Lanczos-resized if needed, alpha composited over the background
+        as scene/dataset.py:57-97 does; the image given to ``set_image``
+        if there is one (uint8 decoded as x / 255)."""
         if self._image is not None:
             if self._image.dtype == np.uint8:
                 return self._image.astype(np.float32) * np.float32(1 / 255)

@@ -4,7 +4,8 @@
 The standard COLMAP model format, as far as the pipeline needs it:
 cameras.bin/images.bin/points3D.bin and their text variants (reference:
 scene/colmap_loader.py).  The binary readers parse through the native
-library (``native.py``) and in Python under ``SARO_NATIVE=0``.
+core library (``native.lib``, which needs no image headers) and in Python
+under ``SARO_NATIVE=0``.
 """
 from __future__ import annotations
 
@@ -75,6 +76,11 @@ def read_cameras_binary(path):
     if native_out is not None:
         return {cid: ColmapCamera(cid, MODEL_BY_ID[mid].name, w, h, params)
                 for cid, mid, w, h, params in native_out}
+    return read_cameras_binary_py(path)
+
+
+def read_cameras_binary_py(path):
+    """``read_cameras_binary``'s Python parse."""
     cams = {}
     with open(path, "rb") as f:
         num = _read(f, 8, "Q")[0]
@@ -93,6 +99,11 @@ def read_images_binary(path, load_points=False):
         if native_out is not None:
             return {iid: ColmapImage(iid, q, t, cid, name, None, None)
                     for iid, q, t, cid, name in native_out}
+    return read_images_binary_py(path, load_points)
+
+
+def read_images_binary_py(path, load_points=False):
+    """``read_images_binary``'s Python parse."""
     images = {}
     with open(path, "rb") as f:
         num = _read(f, 8, "Q")[0]
@@ -125,6 +136,11 @@ def read_points3d_binary(path):
     native_out = native.read_points3d_bin(path)
     if native_out is not None:
         return native_out
+    return read_points3d_binary_py(path)
+
+
+def read_points3d_binary_py(path):
+    """``read_points3d_binary``'s Python parse, a loop over the points."""
     with open(path, "rb") as f:
         num = _read(f, 8, "Q")[0]
         xyz = np.empty((num, 3))

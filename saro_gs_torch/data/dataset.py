@@ -7,8 +7,9 @@ host: the stacked camera matrices, the ground truth as uint8 (a quarter
 of float32's bytes; the train step decodes it on the device) and the
 timestamps.  The shuffle is ``np.random.RandomState(seed)``, as in the
 JAX package, so both see the same batches in the same order.  A batch is
-decoded by one call of the native library, on its own threads without the
-interpreter lock (per camera where it cannot take the batch whole).
+decoded by one call of the native image library, on its own threads
+without the interpreter lock (per camera where it cannot take the batch
+whole, and by PIL where that library is off: ``native.image_lib``).
 """
 from __future__ import annotations
 
@@ -90,7 +91,7 @@ class BatchLoader:
         given to ``set_image`` as it is."""
         if (all(c._image is None and c.image_path for c in cams)
                 and len({(c.width, c.height) for c in cams}) == 1
-                and native.available()):
+                and native.image_available()):
             bg = (1.0,) * 3 if self.white_background else (0.0,) * 3
             out = native.load_images([c.image_path for c in cams],
                                      cams[0].width, cams[0].height, bg)

@@ -4,40 +4,67 @@ The C++ sources under ``native/src`` (``colmap_bin.cpp``, ``knn.cpp``,
 ``image.cpp``; the C interface is ``saro_native.h``) give the host's hot
 paths: COLMAP binary parsing, grid-hash nearest-neighbour distances, and
 threaded PNG/JPEG decode with PIL-style Lanczos resizing.  This binding
-builds its own copy with ``g++`` at first use, with the flags and
-libraries of ``native/Makefile``, into
-``build/saro_gs_torch/native/libsaro_native.so``; it writes nothing under
-``native/``.  A failed build raises with the compiler's output, and a
-library that does not load (a runtime library missing) raises too.
+builds two libraries of its own with ``g++`` at first use, with the flags
+of ``native/Makefile``, into ``build/saro_gs_torch/native/``; it writes
+nothing under ``native/``:
 
-``SARO_NATIVE=0`` selects the callers' pure-Python paths (every function
-here then returns None).  A call the library refuses (a file it cannot
-parse or decode) also returns None, and the caller takes its Python path.
+- the core library, ``libsaro_native.so``: ``knn.cpp`` and
+  ``csrc/native_core.cpp``, which compiles ``colmap_bin.cpp`` with its
+  track skips read through the stream's buffer (not one system call a
+  point) and defines ``sn_free`` and ``sn_version``; linked without
+  libpng, libjpeg or zlib, so that it builds on a host without their
+  headers.  A failed build raises with the compiler's output, and a
+  library that does not load raises too (``lib``).
+- the image library, ``libsaro_native_image.so``: ``image.cpp`` with the
+  Makefile's libraries.  Where it fails to build or load, the failure is
+  kept with the compiler's first error line, printed once on stderr by the
+  first caller that wanted a decode, and the decode callers take PIL
+  (``image_lib``), as the JAX package's callers do when its library is
+  missing.
+
+Each library is rebuilt when it is older than its own sources.
+``SARO_NATIVE=0`` selects the callers' pure-Python paths for both (every
+function here then returns None).  A call the library refuses (a file it
+cannot parse or decode) also returns None, and the caller takes its Python
+path.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import sys
 import threading
 import time
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_ROOT, "native", "src")
-SOURCES = ("colmap_bin.cpp", "knn.cpp", "image.cpp")
+# the core library's sources under SRC_DIR, and its own, which includes
+# the first
+SOURCES = ("colmap_bin.cpp", "knn.cpp")
+CORE_SOURCE = os.path.join(_ROOT, "saro_gs_torch", "csrc", "native_core.cpp")
+# the image library's sources under SRC_DIR
+IMAGE_SOURCES = ("image.cpp",)
 HEADERS = ("saro_native.h",)
 BUILD_DIR = os.path.join(_ROOT, "build", "saro_gs_torch", "native")
 SO_PATH = os.path.join(BUILD_DIR, "libsaro_native.so")
-# native/Makefile's CXXFLAGS and LDLIBS
+IMAGE_SO_PATH = os.path.join(BUILD_DIR, "libsaro_native_image.so")
+# native/Makefile's CXXFLAGS and LDLIBS; the core library needs only
+# threads
 CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-fopenmp",
             "-march=native")
 LDLIBS = ("-lpng", "-ljpeg", "-lz", "-pthread")
+CORE_LDLIBS = ("-pthread",)
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_IMAGE: Optional[ctypes.CDLL] = None
+# why the image library is off (its build's or load's first error line),
+# once it has failed
+IMAGE_ERROR: Optional[str] = None
 
 _c_double_p = ctypes.POINTER(ctypes.c_double)
 _c_float_p = ctypes.POINTER(ctypes.c_float)
@@ -47,83 +74,120 @@ _c_int32_p = ctypes.POINTER(ctypes.c_int32)
 _c_uint64_p = ctypes.POINTER(ctypes.c_uint64)
 _c_int64_p = ctypes.POINTER(ctypes.c_int64)
 
+_i32, _i64 = ctypes.c_int32, ctypes.c_int64
+CORE_SIGNATURES = {
+    "sn_read_points3d_bin": [
+        ctypes.c_char_p, ctypes.POINTER(_c_double_p),
+        ctypes.POINTER(_c_uint8_p), ctypes.POINTER(_c_double_p), _c_int64_p],
+    "sn_read_images_bin": [
+        ctypes.c_char_p, _c_int64_p, ctypes.POINTER(_c_uint32_p),
+        ctypes.POINTER(_c_double_p), ctypes.POINTER(_c_double_p),
+        ctypes.POINTER(_c_uint32_p), ctypes.POINTER(ctypes.c_char_p),
+        _c_int64_p],
+    "sn_read_cameras_bin": [
+        ctypes.c_char_p, _c_int64_p, ctypes.POINTER(_c_uint32_p),
+        ctypes.POINTER(_c_int32_p), ctypes.POINTER(_c_uint64_p),
+        ctypes.POINTER(_c_double_p), ctypes.POINTER(_c_int64_p)],
+    "sn_nn_distance": [_c_float_p, _i64, _c_float_p, ctypes.c_int],
+    "sn_knn_mean_sq_dist": [_c_float_p, _i64, ctypes.c_int, _c_float_p,
+                            ctypes.c_int],
+}
+IMAGE_SIGNATURES = {
+    "sn_load_image": [ctypes.c_char_p, _i32, _i32, _c_float_p, _c_float_p],
+    "sn_load_images": [ctypes.POINTER(ctypes.c_char_p), _i32, _i32, _i32,
+                       _c_float_p, _c_float_p, _i32, _c_int32_p],
+}
 
-def _bind(so: ctypes.CDLL) -> ctypes.CDLL:
-    i32, i64 = ctypes.c_int32, ctypes.c_int64
-    sigs = {
-        "sn_free": [ctypes.c_void_p],
-        "sn_read_points3d_bin": [
-            ctypes.c_char_p, ctypes.POINTER(_c_double_p),
-            ctypes.POINTER(_c_uint8_p), ctypes.POINTER(_c_double_p),
-            _c_int64_p],
-        "sn_read_images_bin": [
-            ctypes.c_char_p, _c_int64_p, ctypes.POINTER(_c_uint32_p),
-            ctypes.POINTER(_c_double_p), ctypes.POINTER(_c_double_p),
-            ctypes.POINTER(_c_uint32_p), ctypes.POINTER(ctypes.c_char_p),
-            _c_int64_p],
-        "sn_read_cameras_bin": [
-            ctypes.c_char_p, _c_int64_p, ctypes.POINTER(_c_uint32_p),
-            ctypes.POINTER(_c_int32_p), ctypes.POINTER(_c_uint64_p),
-            ctypes.POINTER(_c_double_p), ctypes.POINTER(_c_int64_p)],
-        "sn_nn_distance": [_c_float_p, i64, _c_float_p, ctypes.c_int],
-        "sn_knn_mean_sq_dist": [_c_float_p, i64, ctypes.c_int, _c_float_p,
-                                ctypes.c_int],
-        "sn_load_image": [ctypes.c_char_p, i32, i32, _c_float_p,
-                          _c_float_p],
-        "sn_load_images": [ctypes.POINTER(ctypes.c_char_p), i32, i32, i32,
-                           _c_float_p, _c_float_p, i32, _c_int32_p],
-    }
+
+def _bind(so: ctypes.CDLL, sigs: dict) -> ctypes.CDLL:
     for name, argtypes in sigs.items():
         fn = getattr(so, name)
         fn.argtypes = argtypes
-        fn.restype = None if name == "sn_free" else ctypes.c_int
+        fn.restype = ctypes.c_int
+    so.sn_free.argtypes = [ctypes.c_void_p]
+    so.sn_free.restype = None
     so.sn_version.argtypes = []
     so.sn_version.restype = ctypes.c_char_p
     return so
 
 
-def _stale() -> bool:
-    if not os.path.exists(SO_PATH):
+def core_sources() -> List[str]:
+    """What g++ compiles into the core library (colmap_bin.cpp comes in
+    through CORE_SOURCE)."""
+    return [os.path.join(SRC_DIR, SOURCES[1]), CORE_SOURCE]
+
+
+def image_sources() -> List[str]:
+    return [os.path.join(SRC_DIR, f) for f in IMAGE_SOURCES]
+
+
+def command(so_path: str, sources: Sequence[str],
+            ldlibs: Sequence[str]) -> List[str]:
+    """The g++ line that compiles and links ``sources`` into ``so_path``."""
+    return ["g++", *CXXFLAGS, "-I", SRC_DIR, "-shared", "-o", so_path,
+            *sources, *ldlibs]
+
+
+def _stale(so_path: str, deps: Sequence[str]) -> bool:
+    if not os.path.exists(so_path):
         return True
-    built = os.path.getmtime(SO_PATH)
-    return any(os.path.getmtime(os.path.join(SRC_DIR, f)) > built
-               for f in SOURCES + HEADERS)
+    built = os.path.getmtime(so_path)
+    return any(os.path.getmtime(f) > built for f in list(deps) + [
+        os.path.join(SRC_DIR, h) for h in HEADERS])
 
 
-def build() -> float:
-    """Compile the library if it is missing or older than its sources;
-    returns the seconds the compile took (0 when there was nothing to
-    do).  Raises RuntimeError with the compiler's output on failure."""
-    if not _stale():
+def _build(so_path: str, sources: Sequence[str], ldlibs: Sequence[str],
+           included: Sequence[str] = ()) -> float:
+    """Compile ``sources`` into ``so_path`` where it is missing or older
+    than them, the headers or the ``included`` sources."""
+    if not _stale(so_path, list(sources) + list(included)):
         return 0.0
     t0 = time.perf_counter()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{SO_PATH}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = ["g++", *CXXFLAGS, "-shared", "-o", tmp,
-           *[os.path.join(SRC_DIR, f) for f in SOURCES], *LDLIBS]
+    os.makedirs(os.path.dirname(so_path), exist_ok=True)
+    tmp = f"{so_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = command(tmp, sources, ldlibs)
     try:
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=600)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"building {SO_PATH} failed: {e}") from e
+        raise RuntimeError(f"building {so_path} failed: {e}") from e
     if res.returncode != 0:
-        raise RuntimeError(f"building {SO_PATH} failed (g++ rc "
+        raise RuntimeError(f"building {so_path} failed (g++ rc "
                            f"{res.returncode}):\n{' '.join(cmd)}\n"
                            f"{res.stderr}")
-    os.replace(tmp, SO_PATH)
+    os.replace(tmp, so_path)
     return time.perf_counter() - t0
 
 
+def build() -> float:
+    """Compile the core library if it is missing or older than its
+    sources; returns the seconds the compile took (0 when there was
+    nothing to do).  Raises RuntimeError with the compiler's output on
+    failure."""
+    return _build(SO_PATH, core_sources(), CORE_LDLIBS,
+                  included=[os.path.join(SRC_DIR, SOURCES[0])])
+
+
+def build_image() -> float:
+    """``build`` for the image library."""
+    return _build(IMAGE_SO_PATH, image_sources(), LDLIBS)
+
+
+def _disabled() -> bool:
+    return os.environ.get("SARO_NATIVE", "1") == "0"
+
+
 def lib() -> Optional[ctypes.CDLL]:
-    """The loaded library, built at first use; None under SARO_NATIVE=0."""
+    """The loaded core library, built at first use; None under
+    SARO_NATIVE=0."""
     global _LIB
-    if os.environ.get("SARO_NATIVE", "1") == "0":
+    if _disabled():
         return None
     with _LOCK:
         if _LIB is None:
             build()
             try:
-                _LIB = _bind(ctypes.CDLL(SO_PATH))
+                _LIB = _bind(ctypes.CDLL(SO_PATH), CORE_SIGNATURES)
             except OSError as e:
                 raise RuntimeError(f"loading {SO_PATH} failed: {e}") from e
         return _LIB
@@ -131,6 +195,37 @@ def lib() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return lib() is not None
+
+
+def _first_error(msg: str) -> str:
+    lines = msg.splitlines()
+    return next((ln.strip() for ln in lines if "error" in ln),
+                lines[0] if lines else msg)
+
+
+def image_lib() -> Optional[ctypes.CDLL]:
+    """The loaded image library, built at first use; None under
+    SARO_NATIVE=0 or where it failed to build or load.  The first failure
+    is kept in IMAGE_ERROR and printed once on stderr; the library is not
+    built again in this process."""
+    global _IMAGE, IMAGE_ERROR
+    if _disabled():
+        return None
+    with _LOCK:
+        if _IMAGE is None and IMAGE_ERROR is None:
+            try:
+                build_image()
+                _IMAGE = _bind(ctypes.CDLL(IMAGE_SO_PATH), IMAGE_SIGNATURES)
+            except (RuntimeError, OSError) as e:
+                IMAGE_ERROR = _first_error(str(e))
+                print(f"saro_gs_torch.native: the image decoders are off "
+                      f"({IMAGE_ERROR}); images decode through PIL",
+                      file=sys.stderr, flush=True)
+        return _IMAGE
+
+
+def image_available() -> bool:
+    return image_lib() is not None
 
 
 def _take(ptr, shape, dtype, so):
@@ -247,7 +342,7 @@ def load_image(path: str, width: int, height: int,
                bg: Tuple[float, float, float] = (0.0, 0.0, 0.0)):
     """Decode and resize one image -> [3, H, W] float32 in [0, 1], alpha
     composited over ``bg``; or None."""
-    so = lib()
+    so = image_lib()
     if so is None:
         return None
     out = np.empty((3, height, width), np.float32)
@@ -263,7 +358,7 @@ def load_images(paths: List[str], width: int, height: int,
                 nthreads: int = 0):
     """Decode a batch on the library's thread pool -> [B, 3, H, W]
     float32; or None."""
-    so = lib()
+    so = image_lib()
     if so is None or not paths:
         return None
     n = len(paths)

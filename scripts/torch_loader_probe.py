@@ -18,8 +18,8 @@ no density control) and, after 20 warm-up iterations, times in turns:
     in memory (decoded once beforehand), it/s; ``disk_2`` the disk run
     with 2 loader threads.
 
-The native decoder is used where the native library builds (png.h and
-jpeglib.h found), else PIL (SARO_NATIVE=0).  Prints one JSON line with
+The native decoder is used where the native image library builds (png.h
+and jpeglib.h found), else PIL.  Prints one JSON line with
 the card's name and power limit.  Needs one CUDA card.
 """
 import argparse
@@ -61,10 +61,7 @@ def main():
     root = os.path.join(out, "scene")
     os.makedirs(out, exist_ok=True)
     cs.write_arena_dataset(info, root)
-    headers = all(cs.header_found(h) for h in ("png.h", "jpeglib.h"))
-    if not headers:
-        os.environ["SARO_NATIVE"] = "0"
-    decoder = "native" if headers and native.available() else "PIL"
+    decoder = cs.image_decoder(native)
 
     with open(cs.ARENA_CONFIG) as f:
         config = json.load(f)

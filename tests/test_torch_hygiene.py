@@ -49,7 +49,8 @@ def test_sources_name_no_jax():
     # chip_smoke.py and the tests modules it imports
     for f in ("chip_smoke.py", os.path.join("tests", "torch_parity.py"),
               os.path.join("tests", "torch_n3d_scene.py"),
-              os.path.join("tests", "torch_dnerf_scene.py")):
+              os.path.join("tests", "torch_dnerf_scene.py"),
+              os.path.join("tests", "torch_hypernerf_scene.py")):
         with open(os.path.join(ROOT, f)) as fh:
             assert not pat.search(fh.read()), f
 

@@ -2,12 +2,16 @@
 against the JAX package's binding (saro_gs_tpu/native.py) and the port's
 own Python paths, on the cases of tests/test_native.py.
 
-Both bindings load a library compiled from native/src with the same
-flags, so their outputs are compared exactly; the Python paths (struct
-parsing, PIL, the blockwise knn of ops/knn.py) with the tolerances of
-tests/test_native.py.
+Both bindings load code compiled from native/src with the same flags, so
+their outputs are compared exactly; the Python paths (struct parsing, PIL,
+the blockwise knn of ops/knn.py) with the tolerances of
+tests/test_native.py.  The port builds two libraries: the core one (COLMAP
+parsing, knn), which links no image library, and the image one (the
+decoders); where the image library does not build, the COLMAP readers
+stay native and the decode takes PIL.
 """
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -115,6 +119,40 @@ def test_colmap_binary_parity(tmp_path, rng, python_paths):
         assert (a.name, a.camera_id) == (b.name, b.camera_id)
         np.testing.assert_array_equal(a.qvec, b.qvec)
         np.testing.assert_array_equal(a.tvec, b.tvec)
+
+
+def test_points3d_tracks_skipped(tmp_path, rng):
+    """points3D.bin records with tracks (0 to 40 observations, one of 700
+    so that a skip spans several reads of the core library's buffer) and
+    per-point errors: the core library, the JAX binding and the Python
+    loop read the same points."""
+    import struct
+    n = 300
+    xyz, rgb, err = rng.randn(n, 3), rng.randint(0, 255, (n, 3)), rng.rand(n)
+    tracks = rng.randint(0, 41, n)
+    tracks[n // 2] = 700
+    path = str(tmp_path / "points3D.bin")
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", n))
+        for i in range(n):
+            f.write(struct.pack("<QdddBBBd", i, *xyz[i], *rgb[i], err[i]))
+            f.write(struct.pack("<Q", tracks[i]))
+            f.write(rng.randint(0, 99, 2 * tracks[i]).astype("<i4")
+                    .tobytes())
+    mine = native.read_points3d_bin(path)
+    for a, b, c in zip(mine, jnative.read_points3d_bin(path),
+                       colmap.read_points3d_binary_py(path)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    np.testing.assert_array_equal(mine[0], xyz)
+    np.testing.assert_array_equal(mine[1], rgb)
+    np.testing.assert_array_equal(mine[2], err)
+    # a track cut short: the core library refuses the file
+    with open(path, "rb") as f:
+        whole = f.read()
+    with open(path, "wb") as f:
+        f.write(whole[:-4])
+    assert native.read_points3d_bin(path) is None
 
 
 @pytest.mark.parametrize("layout", ["normal", "clustered"])
@@ -249,3 +287,141 @@ def test_device_knn_matches_native(rng):
     dev = pointcloud._nn_distance(pts, torch.device("cpu"))
     np.testing.assert_allclose(dev, native.nn_distance(pts), rtol=1e-5,
                                atol=1e-6)
+
+
+def test_core_library_links_no_image_libraries():
+    """The core library's g++ line names no -lpng, -ljpeg or -lz, the
+    built library needs none of them at load time, and it binds the COLMAP
+    and knn entry points and no decoder; the image library's line carries
+    native/Makefile's libraries."""
+    core = native.command(native.SO_PATH, native.core_sources(),
+                          native.CORE_LDLIBS)
+    assert not {"-lpng", "-ljpeg", "-lz"} & set(core)
+    assert [os.path.basename(f) for f in native.core_sources()] == [
+        "knn.cpp", "native_core.cpp"]
+    image = native.command(native.IMAGE_SO_PATH, native.image_sources(),
+                           native.LDLIBS)
+    assert {"-lpng", "-ljpeg", "-lz"} <= set(image)
+    assert [os.path.basename(f) for f in native.image_sources()] == [
+        "image.cpp"]
+    so = native.lib()
+    assert so.sn_version() == b"saro_native 0.1.0"
+    assert all(hasattr(so, f) for f in native.CORE_SIGNATURES)
+    assert not any(hasattr(so, f) for f in native.IMAGE_SIGNATURES)
+    res = subprocess.run(["readelf", "-d", native.SO_PATH],
+                         capture_output=True, text=True, check=True)
+    needed = [ln.split("[")[1].rstrip("]") for ln in res.stdout.splitlines()
+              if "(NEEDED)" in ln]
+    assert needed and not any(n.startswith(("libpng", "libjpeg", "libz"))
+                              for n in needed), needed
+
+
+@pytest.fixture
+def image_build_fails(tmp_path, monkeypatch):
+    """The image library built from a source that includes a header no
+    host has, into a directory of the test's, its remembered state
+    cleared; the core library loaded before, from the real sources."""
+    native.lib()
+    src = tmp_path / "image_missing_header.cpp"
+    src.write_text('#include "saro_native.h"\n'
+                   "#include <saro_no_such_header.h>\n")
+    monkeypatch.setattr(native, "image_sources", lambda: [str(src)])
+    monkeypatch.setattr(native, "IMAGE_SO_PATH",
+                        str(tmp_path / "out" / "libimage.so"))
+    monkeypatch.setattr(native, "_IMAGE", None)
+    monkeypatch.setattr(native, "IMAGE_ERROR", None)
+
+
+def test_failed_image_build_keeps_colmap_native(image_build_fails, tmp_path,
+                                                rng, capsys, python_paths):
+    """Without the image library: its build raises with the compiler's
+    error, the COLMAP readers and the knn still run natively and equal the
+    Python paths, the loader and a camera decode through PIL (equal to the
+    bit to SARO_NATIVE=0), and the reason is printed once on stderr."""
+    with pytest.raises(RuntimeError, match="saro_no_such_header.h"):
+        native.build_image()
+    _write_colmap(tmp_path, rng)
+    p3d, cams_bin, imgs_bin = (str(tmp_path / f) for f in
+                               ("points3D.bin", "cameras.bin", "images.bin"))
+    assert native.read_points3d_bin(p3d) is not None
+    assert native.read_cameras_bin(cams_bin) is not None
+    assert native.read_images_bin(imgs_bin) is not None
+    pts = rng.randn(500, 3).astype(np.float32)
+    nn = native.nn_distance(pts)
+    assert nn is not None
+    nat = (colmap.read_points3d_binary(p3d),
+           colmap.read_cameras_binary(cams_bin),
+           colmap.read_images_binary(imgs_bin))
+
+    same = [_png(tmp_path, rng, size=(16, 12), alpha=True,
+                 name=f"s{i}.png")[0] for i in range(4)]
+    cams = [cameras.Camera(uid=i, R=np.eye(3), T=np.array([0, 0, 4.0]),
+                           fovx=1.0, fovy=0.8, width=8, height=6,
+                           image_path=p) for i, p in enumerate(same)]
+    loader = dataset.BatchLoader(cams, 4, white_background=True,
+                                 shuffle=False, num_workers=1)
+    try:
+        first = loader._load_batch(np.arange(4)).gt
+        again = loader._load_batch(np.arange(4)).gt
+        one = cams[0].load_image(True)
+        assert native.image_lib() is None and not native.image_available()
+        err = capsys.readouterr().err
+        python_paths()
+        py = loader._load_batch(np.arange(4)).gt
+    finally:
+        loader.close()
+    np.testing.assert_array_equal(first, py)
+    np.testing.assert_array_equal(again, py)
+    np.testing.assert_array_equal(
+        one, cameras.load_image_pil(same[0], 8, 6, white_background=True))
+    lines = [ln for ln in err.splitlines() if "image decoders are off" in ln]
+    assert len(lines) == 1 and "saro_no_such_header.h" in lines[0], err
+    assert "saro_no_such_header.h" in native.IMAGE_ERROR
+
+    py_colmap = (colmap.read_points3d_binary(p3d),
+                 colmap.read_cameras_binary(cams_bin),
+                 colmap.read_images_binary(imgs_bin))
+    for a, b in zip(nat[0], py_colmap[0]):
+        np.testing.assert_array_equal(a, b)
+    for cid in py_colmap[1]:
+        np.testing.assert_array_equal(nat[1][cid].params,
+                                      py_colmap[1][cid].params)
+        assert nat[1][cid][:4] == py_colmap[1][cid][:4]
+    assert nat[2].keys() == py_colmap[2].keys()
+    for iid in nat[2]:
+        a, b = nat[2][iid], py_colmap[2][iid]
+        assert (a.name, a.camera_id) == (b.name, b.camera_id)
+        np.testing.assert_array_equal(a.qvec, b.qvec)
+        np.testing.assert_array_equal(a.tvec, b.tvec)
+    np.testing.assert_allclose(pointcloud._nn_distance(pts, "cpu"), nn,
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_disabled_turns_both_libraries_off(tmp_path, rng, monkeypatch,
+                                           capsys):
+    """SARO_NATIVE=0: neither library is loaded or built, the readers
+    parse in Python what was written, a camera decodes through PIL, and
+    nothing is printed."""
+    monkeypatch.setenv("SARO_NATIVE", "0")
+    monkeypatch.setattr(native, "IMAGE_SO_PATH",
+                        str(tmp_path / "out" / "libimage.so"))
+    assert native.lib() is None and native.image_lib() is None
+    assert not native.available() and not native.image_available()
+    assert not os.path.exists(tmp_path / "out")
+    n = 30
+    xyz = rng.randn(n, 3)
+    rgb = rng.randint(0, 255, (n, 3)).astype(np.uint8)
+    colmap.write_points3d_binary(xyz, rgb, tmp_path / "points3D.bin")
+    assert native.read_points3d_bin(str(tmp_path / "points3D.bin")) is None
+    got_xyz, got_rgb, _ = colmap.read_points3d_binary(
+        str(tmp_path / "points3D.bin"))
+    np.testing.assert_array_equal(got_xyz, xyz)
+    np.testing.assert_array_equal(got_rgb, rgb)
+    path, _ = _png(tmp_path, rng, size=(20, 10))
+    assert native.load_image(path, 20, 10) is None
+    assert native.load_images([path], 20, 10) is None
+    cam = cameras.Camera(uid=0, R=np.eye(3), T=np.zeros(3), fovx=1.0,
+                         fovy=1.0, width=20, height=10, image_path=path)
+    np.testing.assert_array_equal(cam.load_image(),
+                                  cameras.load_image_pil(path, 20, 10))
+    assert "image decoders are off" not in capsys.readouterr().err
