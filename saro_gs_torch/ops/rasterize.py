@@ -133,6 +133,7 @@ class _Rasterize(torch.autograd.Function):
             cfg.tile_x, cfg.tile_y, corner_cull=cfg.tight_rect,
             y0_tiles=row0)
         timing.mark("binning")
+        timing.count("instances", bins.num_instances)
         bg = bg.to(torch.float32).contiguous()
         fwd = tile_kernels.forward_tiles(
             bins.attr, bins.tile_start, bins.tile_count, bg, width, height,

@@ -81,20 +81,22 @@ def test_render(cam: CameraParams, timestamp,
     (RenderOutput, segment RenderOutput or None); the segment render
     shows each Gaussian's lifespan as its colour.  ``row0`` as in
     ``train_render``."""
-    d = gm.deform(params, nets, mcfg, fstatic, timestamp, feat=feat)
-    active = alive * (d.state[:, 0] > EVAL_STATE_CUTOFF)
-    # forward-only render: skip n_contrib
-    rcfg = rcfg._replace(need_aux=False)
-    out = rasterize(d.xyz, d.scaling, d.rotation, d.opacity.reshape(-1),
-                    cam, bg, width=width, height=height,
-                    sh_degree=sh_degree, config=rcfg, shs=d.shs,
-                    active=active, row0=row0)
-    seg: Optional[RenderOutput] = None
-    if require_segment:
-        lifespan_rgb = d.lifespan.expand(-1, 3)
-        seg = rasterize(d.xyz, d.scaling, d.rotation,
-                        d.opacity.reshape(-1), cam, bg, width=width,
-                        height=height, sh_degree=sh_degree, config=rcfg,
-                        colors_precomp=lifespan_rgb, active=active,
-                        row0=row0)
+    with timing.unit("test_render"):
+        with timing.span("deform"):
+            d = gm.deform(params, nets, mcfg, fstatic, timestamp, feat=feat)
+            active = alive * (d.state[:, 0] > EVAL_STATE_CUTOFF)
+        # forward-only render: skip n_contrib
+        rcfg = rcfg._replace(need_aux=False)
+        out = rasterize(d.xyz, d.scaling, d.rotation, d.opacity.reshape(-1),
+                        cam, bg, width=width, height=height,
+                        sh_degree=sh_degree, config=rcfg, shs=d.shs,
+                        active=active, row0=row0)
+        seg: Optional[RenderOutput] = None
+        if require_segment:
+            lifespan_rgb = d.lifespan.expand(-1, 3)
+            seg = rasterize(d.xyz, d.scaling, d.rotation,
+                            d.opacity.reshape(-1), cam, bg, width=width,
+                            height=height, sh_degree=sh_degree, config=rcfg,
+                            colors_precomp=lifespan_rgb, active=active,
+                            row0=row0)
     return out, seg

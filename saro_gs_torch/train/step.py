@@ -125,10 +125,11 @@ def batch_loss_fn(points: gm.GaussianParams, nets: gm.DeformNets, *, cams,
     """Mean loss over the (local) view batch and its gradients.
 
     ``cams`` is a CameraParams whose leaves carry a leading batch axis.
-    Returns (loss, (radii [B, C], ll1, dropped, last image), grads) with
-    grads = (g_leaves in ``param_leaves`` order, g_m2d [B, C, 2]): the
-    gradient of the mean loss, and of the mean loss with respect to each
-    view's ``mean2d_dummy``.
+    Returns (loss, (radii [B, C], ll1, dropped, instances, last image),
+    grads): ``instances`` the instances the views emitted, and grads =
+    (g_leaves in ``param_leaves`` order, g_m2d [B, C, 2]) the gradient of
+    the mean loss, and of the mean loss with respect to each view's
+    ``mean2d_dummy``.
 
     With a tile axis (``mesh.n_tile`` > 1) the rank renders its strip of
     ceil(grid_y / n_tile) tile rows, the strips are gathered into the
@@ -176,7 +177,7 @@ def batch_loss_fn(points: gm.GaussianParams, nets: gm.DeformNets, *, cams,
     inputs = list(pts) + net_leaves + ([feat] if dynamic else [])
     acc = [None] * len(inputs)
     g_m2d, radii, loss_all, ll1_all = [], [], [], []
-    dropped = 0
+    dropped = instances = 0
     color = None
     use_grids = weights.lambda_dplanetv > 0 or weights.lambda_dtime_smooth > 0
 
@@ -213,8 +214,9 @@ def batch_loss_fn(points: gm.GaussianParams, nets: gm.DeformNets, *, cams,
         timing.mark("loss")
         # this view's share of the mean loss, differentiated now so its
         # graph is freed before the next view is rendered
-        grads = torch.autograd.grad(loss * (loss_scale / batch),
-                                    inputs + [m2d], allow_unused=True)
+        with timing.span("backward", view=i):
+            grads = torch.autograd.grad(loss * (loss_scale / batch),
+                                        inputs + [m2d], allow_unused=True)
         timing.mark("deform_backward")
         for k, g in enumerate(grads[:-1]):
             if g is not None:
@@ -225,6 +227,7 @@ def batch_loss_fn(points: gm.GaussianParams, nets: gm.DeformNets, *, cams,
         loss_all.append(loss.detach())
         ll1_all.append(logs["Ll1"].detach())
         dropped = max(dropped, pkg.out.num_dropped)
+        instances += pkg.out.num_instances
         color = color.detach()
 
     g_feat = acc[-1] if dynamic else None
@@ -247,7 +250,7 @@ def batch_loss_fn(points: gm.GaussianParams, nets: gm.DeformNets, *, cams,
                 for p, g in zip(leaves, acc[:len(leaves)])]
     loss = torch.stack(loss_all).mean()
     ll1 = torch.stack(ll1_all).mean()
-    return (loss, (torch.stack(radii), ll1, dropped, color),
+    return (loss, (torch.stack(radii), ll1, dropped, instances, color),
             (g_leaves, torch.stack(g_m2d)))
 
 
@@ -285,7 +288,9 @@ def train_step_core(state: TrainState, cams, gt, timestamps, bg, fstatic,
 
     ``gt`` [B, 3, H, W] is float32 in [0, 1] or uint8 (decoded here, so the
     host sends a quarter of the bytes).  The metrics are python numbers:
-    the guard reads them, with its flags, in one transfer from the card.
+    the guard reads them, with its flags, in one transfer from the card;
+    ``instances`` is the sum of the views' ``num_instances`` (the rank's
+    own, on a mesh), which the binning has already read.
 
     On a ``mesh`` (parallel/runtime.Mesh; ``cams``, ``gt`` and
     ``timestamps`` the rank's own views): over the tile group the SUM of
@@ -299,110 +304,114 @@ def train_step_core(state: TrainState, cams, gt, timestamps, bg, fstatic,
         gt = gt.to(torch.float32) * (1.0 / 255.0)
     batch = gt.shape[0]
 
-    loss, (radii, ll1, dropped, last_img), (g_leaves, g_m2d) = \
-        batch_loss_fn(state.points, state.nets, cams=cams, gt=gt,
-                      timestamps=timestamps, alive=state.alive, bg=bg,
-                      fstatic=fstatic, st=st, stage=stage,
-                      sh_degree=sh_degree, sh_mask=sh_mask, mesh=mesh)
+    with timing.unit("train_step"):
+        loss, (radii, ll1, dropped, instances, last_img), (g_leaves, g_m2d) = \
+            batch_loss_fn(state.points, state.nets, cams=cams, gt=gt,
+                          timestamps=timestamps, alive=state.alive, bg=bg,
+                          fstatic=fstatic, st=st, stage=stage,
+                          sh_degree=sh_degree, sh_mask=sh_mask, mesh=mesh)
 
-    with torch.no_grad():
-        if mesh is not None:
-            # the strips' partial sums of every per-Gaussian gradient
-            *g_leaves, g_m2d = comm.all_reduce(g_leaves + [g_m2d], "sum",
-                                               mesh.tile_group)
-            dropped_t, = comm.all_reduce(
-                [torch.tensor([dropped], device=g_m2d.device)], "max",
-                mesh.tile_group)
-        # densify statistics (train.py:278-292).  The reference accumulates
-        # the screen-gradient norm of each view's own loss; the batch loss
-        # is the mean over views, so undo the 1/B on the dummy gradients
-        norms = torch.linalg.norm(g_m2d, dim=-1) * batch
-        vis = radii > 0
-        vis_count = vis.sum(dim=0)
-        summed = norms.sum(dim=0)
-        max_radii = radii.max(dim=0).values
-        if mesh is not None and mesh.data_group is not None:
-            # the batch's mean over the data group's views (counts travel
-            # as float32: exact below 2**24)
-            *g_leaves, summed, vis_f, loss, ll1 = comm.all_reduce(
-                g_leaves + [summed, vis_count.to(torch.float32), loss, ll1],
-                "sum", mesh.data_group)
-            g_leaves = [g / mesh.n_data for g in g_leaves]
-            loss, ll1 = loss / mesh.n_data, ll1 / mesh.n_data
-            vis_count = vis_f.to(vis_count.dtype)
-            max_radii, dropped_t = comm.all_reduce(
-                [max_radii, dropped_t.to(max_radii.dtype)], "max",
-                mesh.data_group)
-        if mesh is not None:
-            dropped = int(dropped_t)
-        seen = vis_count > 0
-        batch_grad = torch.where(seen, summed / torch.clamp_min(vis_count, 1),
-                                 torch.zeros_like(summed))
-        aux = dens.add_stats(state.aux, batch_grad, seen, max_radii)
+        with torch.no_grad():
+            if mesh is not None:
+                # the strips' partial sums of every per-Gaussian gradient
+                *g_leaves, g_m2d = comm.all_reduce(g_leaves + [g_m2d], "sum",
+                                                   mesh.tile_group)
+                dropped_t, = comm.all_reduce(
+                    [torch.tensor([dropped], device=g_m2d.device)], "max",
+                    mesh.tile_group)
+            # densify statistics (train.py:278-292).  The reference accumulates
+            # the screen-gradient norm of each view's own loss; the batch loss
+            # is the mean over views, so undo the 1/B on the dummy gradients
+            norms = torch.linalg.norm(g_m2d, dim=-1) * batch
+            vis = radii > 0
+            vis_count = vis.sum(dim=0)
+            summed = norms.sum(dim=0)
+            max_radii = radii.max(dim=0).values
+            if mesh is not None and mesh.data_group is not None:
+                # the batch's mean over the data group's views (counts travel
+                # as float32: exact below 2**24)
+                *g_leaves, summed, vis_f, loss, ll1 = comm.all_reduce(
+                    g_leaves + [summed, vis_count.to(torch.float32), loss,
+                                ll1], "sum", mesh.data_group)
+                g_leaves = [g / mesh.n_data for g in g_leaves]
+                loss, ll1 = loss / mesh.n_data, ll1 / mesh.n_data
+                vis_count = vis_f.to(vis_count.dtype)
+                max_radii, dropped_t = comm.all_reduce(
+                    [max_radii, dropped_t.to(max_radii.dtype)], "max",
+                    mesh.data_group)
+            if mesh is not None:
+                dropped = int(dropped_t)
+            seen = vis_count > 0
+            batch_grad = torch.where(
+                seen, summed / torch.clamp_min(vis_count, 1),
+                torch.zeros_like(summed))
+            aux = dens.add_stats(state.aux, batch_grad, seen, max_radii)
 
-        n_pts = len(state.points)
-        if stage != "dynamatic":
-            tpos = gm.GaussianParams._fields.index("temporal_pos")
-            g_leaves = [torch.zeros_like(g) if k >= n_pts or k == tpos else g
-                        for k, g in enumerate(g_leaves)]
+            n_pts = len(state.points)
+            if stage != "dynamatic":
+                tpos = gm.GaussianParams._fields.index("temporal_pos")
+                g_leaves = [torch.zeros_like(g)
+                            if k >= n_pts or k == tpos else g
+                            for k, g in enumerate(g_leaves)]
 
-        lrs, wds = lr_trees(state.step, state.inv_integral, state.points,
-                            state.nets, st, stage=stage,
-                            scale_integral=scale_integral)
-        leaves = param_leaves(state.points, state.nets)
-        new_leaves, new_opt = optim.adam_step(state.opt, leaves, g_leaves,
-                                              lrs, wds)
-        # physical projection: under the per-Gaussian integral LR scaling
-        # Adam's log-space steps can run a scale away until exp()
-        # overflows; cap at twice the camera extent
-        pts = gm.GaussianParams(*new_leaves[:n_pts])
-        scaling = torch.clamp_max(pts.scaling,
-                                  math.log(2.0 * st.extent + 1e-6))
-        if st.scale_floor > 0.0:
-            scaling = torch.clamp_min(scaling,
-                                      math.log(st.scale_floor * st.extent))
-        pts = pts._replace(scaling=scaling)
+            lrs, wds = lr_trees(state.step, state.inv_integral, state.points,
+                                state.nets, st, stage=stage,
+                                scale_integral=scale_integral)
+            leaves = param_leaves(state.points, state.nets)
+            new_leaves, new_opt = optim.adam_step(state.opt, leaves, g_leaves,
+                                                  lrs, wds)
+            # physical projection: under the per-Gaussian integral LR scaling
+            # Adam's log-space steps can run a scale away until exp()
+            # overflows; cap at twice the camera extent
+            pts = gm.GaussianParams(*new_leaves[:n_pts])
+            scaling = torch.clamp_max(pts.scaling,
+                                      math.log(2.0 * st.extent + 1e-6))
+            if st.scale_floor > 0.0:
+                scaling = torch.clamp_min(scaling,
+                                          math.log(st.scale_floor * st.extent))
+            pts = pts._replace(scaling=scaling)
 
-        # non-finite guard: one bad frame must not poison the run.  The
-        # flags, the per-group max |grad| and the scalar metrics travel to
-        # the host in one tensor.  bad_src is a bitmask of the gradient
-        # groups that went non-finite (decode with bad_src_names); g_m2d
-        # counts because it feeds the persistent densify statistics.
-        groups = [(name, [g]) for name, g in
-                  zip(gm.GaussianParams._fields, g_leaves[:n_pts])]
-        groups += [("nets", g_leaves[n_pts:]), ("mean2d", [g_m2d])]
-        flags = [torch.isfinite(loss)]
-        gmaxs = []
-        for _, gs in groups:
-            flags.append(torch.stack(
-                [torch.isfinite(g.sum()) for g in gs]).all())
-            gmaxs.append(torch.stack([g.abs().max() for g in gs]).max())
-        psnr = losses.psnr(torch.clamp(last_img, 0, 1), gt[-1])
-        packed = torch.stack(
-            [f.to(torch.float32) for f in flags] + gmaxs
-            + [loss, ll1, state.inv_integral.max(), psnr]).tolist()
-        n_flags = len(flags)
-        ok = [v > 0.5 for v in packed[:n_flags]]
-        finite = all(ok)
-        bad_src = sum(1 << bit for bit, good in enumerate(ok) if not good)
-        gmax = {name: packed[n_flags + k]
-                for k, (name, _) in enumerate(groups)}
-        loss_v, ll1_v, inv_max_v, psnr_v = packed[n_flags + len(groups):]
+            # non-finite guard: one bad frame must not poison the run.  The
+            # flags, the per-group max |grad| and the scalar metrics travel to
+            # the host in one tensor.  bad_src is a bitmask of the gradient
+            # groups that went non-finite (decode with bad_src_names); g_m2d
+            # counts because it feeds the persistent densify statistics.
+            groups = [(name, [g]) for name, g in
+                      zip(gm.GaussianParams._fields, g_leaves[:n_pts])]
+            groups += [("nets", g_leaves[n_pts:]), ("mean2d", [g_m2d])]
+            flags = [torch.isfinite(loss)]
+            gmaxs = []
+            for _, gs in groups:
+                flags.append(torch.stack(
+                    [torch.isfinite(g.sum()) for g in gs]).all())
+                gmaxs.append(torch.stack([g.abs().max() for g in gs]).max())
+            psnr = losses.psnr(torch.clamp(last_img, 0, 1), gt[-1])
+            packed = torch.stack(
+                [f.to(torch.float32) for f in flags] + gmaxs
+                + [loss, ll1, state.inv_integral.max(), psnr]).tolist()
+            n_flags = len(flags)
+            ok = [v > 0.5 for v in packed[:n_flags]]
+            finite = all(ok)
+            bad_src = sum(1 << bit for bit, good in enumerate(ok) if not good)
+            gmax = {name: packed[n_flags + k]
+                    for k, (name, _) in enumerate(groups)}
+            loss_v, ll1_v, inv_max_v, psnr_v = packed[n_flags + len(groups):]
 
-        if finite:
-            for p, new in zip(state.nets.leaves(), new_leaves[n_pts:]):
-                p.copy_(new)
-            new_state = state._replace(points=pts, opt=new_opt, aux=aux)
-        else:
-            new_state = state
-        # the health counters move on skipped steps too
-        new_state = new_state._replace(
-            step=state.step + 1,
-            dropped_hwm=max(state.dropped_hwm, dropped),
-            bad_steps=state.bad_steps + (0 if finite else 1))
-    timing.mark("adam_guard")
+            if finite:
+                for p, new in zip(state.nets.leaves(), new_leaves[n_pts:]):
+                    p.copy_(new)
+                new_state = state._replace(points=pts, opt=new_opt, aux=aux)
+            else:
+                new_state = state
+            # the health counters move on skipped steps too
+            new_state = new_state._replace(
+                step=state.step + 1,
+                dropped_hwm=max(state.dropped_hwm, dropped),
+                bad_steps=state.bad_steps + (0 if finite else 1))
+        timing.mark("adam_guard")
 
     metrics = {"loss": loss_v, "Ll1": ll1_v, "dropped": int(dropped),
+               "instances": int(instances),
                "bad_step": 0 if finite else 1, "bad_src": bad_src,
                "gmax": gmax, "inv_lr_max": inv_max_v, "psnr": psnr_v}
     return new_state, metrics

@@ -113,7 +113,7 @@ def check_gradients(golden_path: str, cfg, params, nets, alive, fstatic,
         extent=1.0)
     gt = torch.as_tensor(noise_gt(1, h, w), device=dev).to(torch.float32) \
         * (1.0 / 255.0)
-    loss, (_, _, dropped, _), (g_leaves, g_m2d) = step_mod.batch_loss_fn(
+    loss, (_, _, dropped, _, _), (g_leaves, g_m2d) = step_mod.batch_loss_fn(
         params, nets, cams=cams, gt=gt,
         timestamps=torch.full((1, 1, 1), ts, device=dev), alive=alive,
         bg=torch.ones(3, device=dev), fstatic=fstatic, st=st,
