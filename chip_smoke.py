@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (saro_gs_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase <name> --out <json>   # one phase alone
+
+(``--phase``: neural3d, dnerf, hypernerf, bench_kernels; ssim, K5 of
+phase 6 alone; parallel, phase 13 with phase 11's trainer before it.)
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -29,7 +33,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      plane (strided dfeat rows) and on a hot cell (every point on the
      coarsest texel): within 1e-5 of the output's largest entry, two
      launches equal to the bit; ms per call beside one index_add_ over the
-     same taps;
+     same taps; then K5 (the loss's SSIM, ops/ssim.py) on seeded views of
+     3x400x400, 3x1014x1352 and 3x960x536 against its plain version run
+     on the card, the eager forward with autograd's backward: the terms
+     and the gradient to the bit, the mean within 1e-6 relative, two calls
+     equal to the bit; the forward's and the backward's ms (device time by
+     the profiler, as K1's) beside the plain version's (by CUDA events)
+     and its launches;
   7. the render slice: the arena checkpoint rendered by render.test_render
      at 1352x1014 from ring camera 0 over bench.py's timestamp sweep (30
      frames, 5 warm-up), timed with CUDA events; FPS, ms per stage and the
@@ -43,7 +53,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      learning rates, the integral prune and LR scaling).  The same first
      step from two copies of the state must give equal states to the bit;
      10 checked steps (2 warm-up, 8 timed with CUDA events: steps/s, every
-     kernel's launches, all four > 0, K4 once per plane), then 5 more for
+     kernel's launches, all five > 0, K4 once per plane, K5 twice a
+     view), then 5 more for
      the ms per stage (3) and the card's busy share under torch.profiler
      (2); no bad step and nothing dropped on any of the 15;
  10. gradient parity with the JAX package: one training view at 338x254
@@ -348,6 +359,14 @@ K3_FLOPS_PER_REPLAYED_PAIR = 20
 K3_FLOPS_PER_CONTRIBUTING_PAIR = 49 + 9
 # per tap and channel in K4: one multiply, one add
 K4_FLOPS_PER_TAP_CHANNEL = 2
+# per pixel in K5's forward: five blurs of two 11-tap passes of a multiply
+# and an add, x^2, y^2 and xy (3), the map (17); in its backward: the map's
+# three gradients (17), their three transposed blurs and d img1 (5)
+K5_FWD_FLOPS_PER_PIXEL = 5 * 2 * 11 * 2 + 3 + 17
+K5_BWD_FLOPS_PER_PIXEL = 17 + 3 * 2 * 11 * 2 + 5
+# K5's views (width, height): the D-NeRF and bench trainers', Neural3D's
+# and HyperNeRF's
+K5_SHAPES = ((400, 400), (1352, 1014), (536, 960))
 # K3 against its plain version, which sums an instance's pixels in another
 # order: each row's worst entry over the row's largest, and the row's
 # relative L2 error
@@ -3531,6 +3550,125 @@ def k4_check(name, coords, lvl, df, h, w, n_lv, timing):
     return res
 
 
+def k5_check(name, width, height, timing):
+    """K5 (ops/ssim.py) on a seeded 3 x height x width view against its
+    plain version, ``parts`` and autograd, run on the card: the terms (and
+    so the map made from them) and d img1 to the bit, the mean within 1e-6
+    relative of a float64 mean of that map (summed in another order), two
+    calls equal to the bit; the forward's and the backward's ms (call_ms)
+    beside the plain version's (CUDA events), its kernel launches, and the
+    bounds: what the function needs (both images read, d img1 written) and
+    what the design moves besides (the six terms written and read back).
+    Returns the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from saro_gs_torch.ops import ssim
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    a = torch.rand((3, height, width), generator=gen)
+    b = torch.clamp(a + 0.1 * torch.randn(a.shape, generator=gen), 0, 1)
+    a, b = a.to(dev), b.to(dev)
+    g = torch.tensor(-0.05, device=dev)
+    runs = []
+    for _ in range(2):
+        mean, terms = ssim.ssim_forward(a, b, True)
+        runs.append((mean, terms, ssim.ssim_backward(a, b, terms, g)))
+    torch.cuda.synchronize()
+    (mean, terms, grad), (mean2, terms2, grad2) = runs
+    check(torch.equal(mean, mean2) and torch.equal(grad, grad2)
+          and torch.equal(terms, terms2), f"K5 {name}: two calls differ")
+    check(torch.equal(terms, torch.stack(ssim.parts(a, b)[:6])),
+          f"K5 {name}: the terms differ from the plain version's")
+    want = float(((terms[2] * terms[3]) / (terms[4] * terms[5])).double()
+                 .mean())
+    mean_err = abs(float(mean) - want) / abs(want)
+
+    def plain():
+        y = a.detach().requires_grad_()
+        return torch.autograd.grad(ssim.parts(y, b).ssim_map.mean(), y, g)
+    eager_grad = plain()[0]
+    grad_err = float((grad - eager_grad).abs().max()) / float(
+        eager_grad.abs().max())
+    check(mean_err <= 1e-6 and torch.equal(grad, eager_grad),
+          f"K5 {name}: mean off by {mean_err} (limit 1e-6), gradient by "
+          f"{grad_err} of autograd's max (limit: equal to the bit)")
+
+    fwd_ms, fwd_wrapper, source, _ = call_ms(
+        lambda: ssim.ssim_forward(a, b, True), timing)
+    bwd_ms, bwd_wrapper, _, _ = call_ms(
+        lambda: ssim.ssim_backward(a, b, terms, g), timing)
+    plain_ms = timing.event_ms(plain, 5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        plain()
+        torch.cuda.synchronize()
+    plain_launches = sum(e.count for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+    n = a.numel()
+
+    def bound(arrays, ops):
+        by_bytes = arrays * 4 * n / PEAK_BYTES * 1e3
+        by_ops = ops * n / PEAK_F32 * 1e3
+        return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops \
+            else "operations"
+    # what the function needs: the forward reads both images, the backward
+    # reads both and writes d img1
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = (
+        bound(2, K5_FWD_FLOPS_PER_PIXEL), bound(3, K5_BWD_FLOPS_PER_PIXEL))
+    # the design's traffic besides: the six terms written, then read back
+    design = [bound(2 + 6, K5_FWD_FLOPS_PER_PIXEL)[0],
+              bound(3 + 6, K5_BWD_FLOPS_PER_PIXEL)[0]]
+    res = dict(ms=fwd_ms + bwd_ms, forward_ms=fwd_ms, backward_ms=bwd_ms,
+               wrapper_ms=fwd_wrapper + bwd_wrapper, source=source,
+               plain_ms=plain_ms, plain_launches=plain_launches,
+               bound_ms=fwd_bound + bwd_bound, forward_bound_ms=fwd_bound,
+               backward_bound_ms=bwd_bound, bound_by=[fwd_by, bwd_by],
+               design_bound_ms=sum(design), max_rel_err_mean=mean_err,
+               grad_bit_equal=True)
+    log(f"K5 ssim, {name} (3x{height}x{width}): the terms and d img1 equal "
+        f"to the plain version's to the bit; mean off by {mean_err:.3g} "
+        f"relative; two calls bit-equal; forward {fwd_ms:.4f} + backward "
+        f"{bwd_ms:.4f} ms ({source}; wrapper {fwd_wrapper:.4f} + "
+        f"{bwd_wrapper:.4f} ms), bound {fwd_bound:.5f} ({fwd_by}) + "
+        f"{bwd_bound:.5f} ({bwd_by}) ms, with the terms' traffic "
+        f"{design[0]:.5f} + {design[1]:.5f} ms; plain (autograd) "
+        f"{plain_ms:.4f} ms in {plain_launches} kernel launches")
+    return res
+
+
+def k5_phase(dev, tk, timing):
+    """K5 alone (--phase ssim): k5_check at K5_SHAPES.  Returns (results,
+    the kernels' launches in it)."""
+    return ({f"{w}x{h}": k5_check(f"{w}x{h}", w, h, timing)
+             for w, h in K5_SHAPES}, dict(tk.launches))
+
+
+def parallel_alone_phase(dev, tk, timing):
+    """Phase 13 alone (--phase parallel), with what it compares with: the
+    arena model at main's capacity, phase 9's inputs and phase 11's
+    trainer.  Returns (results, phase 13's launches by run)."""
+    import torch
+    from saro_gs_torch import bench, render
+    from saro_gs_torch.models import gaussians as gm
+    cfg, mcfg, params, nets, alive, fstatic, _ = load_arena(dev)
+    with torch.no_grad():
+        feat = gm.field_feat(params, nets, mcfg, fstatic)
+    cam = eval_camera(dev)
+    bg = torch.ones(3, device=dev)
+    rcfg = cfg.raster_config()._replace(need_aux=False)
+    cap = bench.probe_capacity(lambda ts: render.test_render(
+        cam, ts, params, nets, alive, mcfg, fstatic, bg, width=W, height=H,
+        sh_degree=3, rcfg=rcfg, feat=feat)[0])
+    rcfg = rcfg._replace(max_instances=cap)
+    tin = train_inputs(cfg, mcfg, params, nets, alive, fstatic, dev)
+    trainer, _, info, phase11 = trainer_phase(
+        params, nets, alive, fstatic, mcfg, rcfg, dev, tk)
+    torch.cuda.empty_cache()
+    parallel, counts = parallel_phase(
+        cfg, mcfg, params, nets, alive, fstatic, rcfg, tin,
+        dict(phase11, info=info), dev, tk)
+    return {"trainer": trainer, "parallel": parallel}, counts
+
+
 def stage_frame(params, nets, alive, mcfg, fstatic, cam, ts, rcfg,
                 feat=None, width=W, height=H):
     """One frame's deformed Gaussians and their preprocess at width x
@@ -3947,6 +4085,8 @@ def main():
     k4 = {name: k4_check(name, coords, lvl, df, h, w, n_lv, timing)
           for name, coords, lvl, df, (h, w, n_lv), _ in cases}
     k4_err = max(r["max_abs_err"] for r in k4.values())
+    k5 = {f"{w}x{h}": k5_check(f"{w}x{h}", w, h, timing)
+          for w, h in K5_SHAPES}
 
     # ---- 7. the render slice: the eval render sweep -------------------------
     ts_list = [0.5 + 0.49 * math.sin(i / 7) for i in range(30)]
@@ -4088,9 +4228,13 @@ def main():
     check(all(torch.isfinite(x).all() for x in state_leaves(state)),
           "train: a non-finite value in the state")
     check(all(train_counts[k] > 0 for k in
-              ("expand", "forward", "backward", "grid_scatter")),
+              ("expand", "forward", "backward", "grid_scatter", "ssim")),
           f"train: a kernel never launched in the timed steps: "
           f"{train_counts}")
+    # K5: the forward and the backward of each view's loss
+    check(train_counts["ssim"] == 2 * BATCH * n_timed,
+          f"train: K5 launched {train_counts['ssim']} times in {n_timed} "
+          "steps, expected twice a view")
     # K4: one call per plane a step, both mip brackets in it
     check(train_counts["grid_scatter"] == len(nets.field.planes) * n_timed,
           f"train: K4 launched {train_counts['grid_scatter']} times in "
@@ -4245,6 +4389,16 @@ def main():
              "saro_gs_tpu/ops/tile_kernels.py:726", fk["K3"]),
             ("grid_scatter", "scatter_mip_taps (K4)", "grid_scatter.cu",
              "saro_gs_tpu/ops/grid_scatter.py:50", k4_row))]
+    kernels.append({
+        "name": "ssim (K5)", "route": "cuda",
+        "source": "saro_gs_torch/csrc/ssim.cu",
+        "replaces": "none (saro_gs_tpu/train/losses.py:67-86 is XLA ops)",
+        "launches": train_counts["ssim"],
+        "launches_trainer": trainer_counts["ssim"],
+        "launches_bench": bench_counts["train"]["ssim"],
+        "check": "terms and gradient bit-equal to the plain version "
+                 "(autograd), mean 1e-6 relative, two calls bit-equal",
+        "shapes": k5})
     print(json.dumps({"slice": {"fps": 1e3 / frame_ms, "ms_per_frame":
                                 frame_ms, "stages_ms": stages,
                                 "num_instances": [min(n_inst_seen),
@@ -4323,7 +4477,8 @@ def phase_main(name, out):
 
 # the phases that can run in a process of their own
 PHASES = {"neural3d": neural3d_phase, "dnerf": dnerf_phase,
-          "hypernerf": hypernerf_phase, "bench_kernels": bench_kernels_phase}
+          "hypernerf": hypernerf_phase, "bench_kernels": bench_kernels_phase,
+          "ssim": k5_phase, "parallel": parallel_alone_phase}
 
 
 if __name__ == "__main__":

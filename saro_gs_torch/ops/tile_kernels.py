@@ -9,7 +9,10 @@ library of the package.
   * K3, the backward compositor (``csrc/backward.cu``), replaces
     ``saro_gs_tpu/ops/tile_kernels.py:_bwd_kernel``;
   * K4, the field-gradient scatter (``csrc/grid_scatter.cu``), is built
-    here and wrapped in ``ops/grid_scatter.py:scatter_mip_taps``.
+    here and wrapped in ``ops/grid_scatter.py:scatter_mip_taps``;
+  * K5, the training loss's SSIM and its gradient (``csrc/ssim.cu``),
+    replaces no Pallas kernel; it is built here and wrapped in
+    ``ops/ssim.py:ssim``.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, under
@@ -57,7 +60,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)
 # C entry points: source, function, argtypes (pointers and the stream as
 # c_void_p, so ctypes passes them whole)
 _KERNELS = {
@@ -72,12 +76,17 @@ _KERNELS = {
                   _P, _P, _P, _P, _P, _P, _P]),
     "grid_scatter": ("grid_scatter.cu", "saro_scatter_mip_taps",
                      [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "ssim": ("ssim.cu", "saro_ssim_forward",
+             [_P, _P, _I, _I, _I, _FP, _F, _F, _P, _P, _P, _P]),
 }
 # further C functions of a library: name -> (argtypes, restype)
 _HELPERS = {
     "forward": {"saro_forward_band_rows": ([_I, _I], _I)},
     "grid_scatter": {"saro_scatter_mip_workspace": ([_I] * 5,
                                                     ctypes.c_longlong)},
+    "ssim": {"saro_ssim_partials": ([_I] * 3, _I),
+             "saro_ssim_backward": ([_P, _P, _I, _I, _I, _FP, _P, _P, _P,
+                                     _P], _I)},
 }
 # instances the backward stages per batch, whatever the forward's chunk:
 # two staging buffers and nine partial sums per warp for each of them
@@ -158,7 +167,8 @@ def build(verbose: bool = False) -> float:
 def _fn(name: str, symbol: str = ""):
     """The C function ``symbol`` (default: the launch) of library
     ``name``, built at first use."""
-    build()
+    if name not in _libs:
+        build()
     return getattr(_libs[name], symbol or _KERNELS[name][1])
 
 

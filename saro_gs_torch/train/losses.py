@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops import ssim as ssim_ops
 
 
 def l1_loss(x, y):
@@ -35,57 +36,21 @@ def psnr(img, gt):
     return (20.0 * torch.log10(1.0 / torch.sqrt(mse))).mean()
 
 
-def _gaussian_taps(window_size=11, sigma=1.5):
-    g = np.exp(-((np.arange(window_size) - window_size // 2) ** 2)
-               / (2 * sigma ** 2))
-    g = g / g.sum()
-    return tuple(float(v) for v in g.astype(np.float32))
-
-
-_WINDOW = _gaussian_taps()
-
-
-def _depthwise_conv(img, taps):
-    """img [C, H, W], separable taps (k,) -> zero-padded same-size blur
-    with the outer-product window (the reference's F.conv2d with the 2-D
-    Gaussian window, utils/loss_utils.py:27-36).
-
-    Two shift-and-add passes, in the JAX package's order of operations,
-    and not a library convolution: cuDNN's backward is not reproducible
-    run to run and defaults to TF32, and the train step is held equal to
-    the bit across runs."""
-    k = len(taps)
-    h = k // 2
-    _, height, width = img.shape
-    x = F.pad(img, (0, 0, h, h))
-    x = sum(taps[i] * x[:, i:i + height, :] for i in range(k))
-    x = F.pad(x, (h, h))
-    return sum(taps[i] * x[:, :, i:i + width] for i in range(k))
-
-
-def _ssim_stats(img1, img2, window):
-    mu1 = _depthwise_conv(img1, window)
-    mu2 = _depthwise_conv(img2, window)
-    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-    s1 = _depthwise_conv(img1 * img1, window) - mu1_sq
-    s2 = _depthwise_conv(img2 * img2, window) - mu2_sq
-    s12 = _depthwise_conv(img1 * img2, window) - mu12
-    c1, c2 = 0.01 ** 2, 0.03 ** 2
-    ssim_map = ((2 * mu12 + c1) * (2 * s12 + c2)) / \
-        ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2))
-    cs_map = (2 * s12 + c2) / (s1 + s2 + c2)
-    return ssim_map, cs_map
+def _ssim_stats(img1, img2):
+    p = ssim_ops.parts(img1, img2)
+    return p.ssim_map, p.num2 / p.den2
 
 
 def ssim(img1, img2):
     """Windowed SSIM with the reference's 11x11 sigma-1.5 kernel and zero
-    padding (utils/loss_utils.py:38-68)."""
-    return _ssim_stats(img1, img2, _WINDOW)[0].mean()
+    padding (utils/loss_utils.py:38-68): kernel pair K5 on the card, its
+    plain version on the CPU (ops/ssim.py)."""
+    return ssim_ops.ssim(img1.contiguous(), img2.contiguous())
 
 
 def ssim_map(img1, img2):
     """Per-pixel SSIM map (utils/loss_utils.ssimmap:71-101)."""
-    return _ssim_stats(img1, img2, _WINDOW)[0]
+    return _ssim_stats(img1, img2)[0]
 
 
 _MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
@@ -98,7 +63,7 @@ def msssim(img1, img2):
     vals = []
     x, y = img1, img2
     for i in range(levels):
-        s_map, cs_map = _ssim_stats(x, y, _WINDOW)
+        s_map, cs_map = _ssim_stats(x, y)
         if i < levels - 1:
             vals.append(torch.clamp_min(cs_map.mean(), 0.0))
             x = F.avg_pool2d(x[None], 2)[0]

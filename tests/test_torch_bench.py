@@ -378,7 +378,7 @@ def test_main_on_cpu_prints_bench_py_records(capsys, monkeypatch):
         assert r["vs_baseline"] is None and r["card"] == "cpu"
         assert r["dropped"] == 0
         assert set(r["launches"]) == {"expand", "forward", "backward",
-                                      "grid_scatter"}
+                                      "grid_scatter", "ssim"}
         assert not any(r["launches"].values())
     assert head["frames"] == 3 and head["warmup"] == 1
     assert head["passes"] == 1 and train["steps"] == 1

@@ -13,7 +13,7 @@ import torch
 
 from saro_gs_torch.data import cameras
 from saro_gs_torch.ops import (binning, compositing, grid_scatter,
-                               projection, tile_kernels)
+                               projection, ssim, tile_kernels)
 from saro_gs_torch.models import field as field_mod
 from saro_gs_torch.models import gaussians as gm
 from saro_gs_torch.ops.projection import CameraParams
@@ -522,6 +522,80 @@ def test_scatter_kernel_hot_cell(dev):
     assert not k[:, :-1].any()
 
 
+def _ssim_images(c, h, w, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    a = rng.uniform(0, 1, (c, h, w))
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1)
+    return (torch.as_tensor(a.astype(np.float32)).to(dev),
+            torch.as_tensor(b.astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("c,h,w", [(3, 400, 400), (3, 1014, 1352),
+                                   (3, 960, 536), (3, 5, 7)])
+def test_ssim_kernel_matches_plain(dev, c, h, w):
+    """K5 against its plain version run on the card: the terms, and so the
+    map made from them, to the bit; d img1 autograd's through ``parts`` to
+    the bit (and so within 1e-6 of its largest entry); the mean within
+    1e-6 relative of the plain mean and of a float64 mean of the map made
+    from the terms (summed in another order); two calls equal to the bit.
+    7x5 is smaller than the window."""
+    a, b = _ssim_images(c, h, w, dev)
+    g = torch.tensor(-0.05, device=dev)
+    tile_kernels.reset_launches()
+    runs = []
+    for _ in range(2):
+        mean, terms = ssim.ssim_forward(a, b, True)
+        runs.append((mean, terms, ssim.ssim_backward(a, b, terms, g)))
+    torch.cuda.synchronize()
+    assert tile_kernels.launches["ssim"] == 4
+    (mean, terms, grad), (mean2, terms2, grad2) = runs
+    assert torch.equal(mean, mean2) and torch.equal(terms, terms2)
+    assert torch.equal(grad, grad2)
+    p = ssim.parts(a, b)
+    assert torch.equal(terms, torch.stack(p[:6]))
+    kmap = (terms[2] * terms[3]) / (terms[4] * terms[5])
+    assert torch.equal(kmap, p.ssim_map)
+    for want in (p.ssim_map.mean().item(), kmap.double().mean().item()):
+        assert abs(mean.item() - want) <= 1e-6 * abs(want)
+    x = a.clone().requires_grad_()
+    eager = torch.autograd.grad(ssim.parts(x, b).ssim_map.mean(), x, g)[0]
+    assert (grad - eager).abs().max().item() <= \
+        1e-6 * eager.abs().max().item()
+    assert torch.equal(grad, eager)
+    # without a gradient: the same mean, no terms
+    tile_kernels.reset_launches()
+    with torch.no_grad():
+        alone = ssim.ssim(a.clone().requires_grad_(), b)
+    assert torch.equal(alone, mean) and tile_kernels.launches["ssim"] == 1
+
+
+def test_ssim_through_autograd_matches_plain(dev):
+    """The loss's use on the card against the CPU's: d img1 to the bit."""
+    a, b = _ssim_images(3, 96, 80, dev, seed=1)
+    x = a.clone().requires_grad_()
+    tile_kernels.reset_launches()
+    (0.2 * (1.0 - losses.ssim(x, b))).backward()
+    assert tile_kernels.launches["ssim"] == 2
+    y = a.cpu().requires_grad_()
+    (0.2 * (1.0 - losses.ssim(y, b.cpu()))).backward()
+    assert (x.grad.cpu() - y.grad).abs().max().item() <= \
+        1e-6 * y.grad.abs().max().item()
+
+
+def test_ssim_wrapper_refuses_bad_inputs(dev):
+    a, b = _ssim_images(3, 20, 24, dev)
+    with pytest.raises(ValueError, match="dtype"):
+        ssim.ssim(a.double(), b.double())
+    with pytest.raises(ValueError, match="shape"):
+        ssim.ssim(a[0], b[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        ssim.ssim(a[:, :, ::2], b[:, :, ::2])
+    with pytest.raises(ValueError, match="img2"):
+        ssim.ssim(a.clone().requires_grad_(), b.clone().requires_grad_())
+    with pytest.raises(ValueError, match="on"):
+        ssim.ssim(a, b.cpu())
+
+
 def test_rasterize_gradients_cuda_match_cpu(dev):
     cam, (m, s, q, o, sh) = _scene(3, 1500, 96, 80)
     cfg = RasterConfig(tile_x=32, tile_y=32, chunk=128, max_instances=1 << 18)
@@ -613,7 +687,8 @@ def test_train_step_cuda_matches_cpu(dev):
             assert tile_kernels.launches == {"expand": batch,
                                              "forward": batch,
                                              "backward": batch,
-                                             "grid_scatter": 6}
+                                             "grid_scatter": 6,
+                                             "ssim": 2 * batch}
         results.append((m, [x.cpu() for x in new.opt.mu],
                         [x.detach().cpu() for x in step_mod.param_leaves(
                             new.points, new.nets)]))

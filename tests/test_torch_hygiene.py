@@ -210,7 +210,7 @@ def test_kernels_use_no_atomics_and_wrappers_do_not_fall_back():
             # comments may name what the kernels avoid
             code[f] = re.sub(r"//[^\n]*", "", fh.read())
     assert {"forward.cu", "backward.cu", "expand.cu", "grid_scatter.cu",
-            "alpha_chain.cuh"} <= set(code)
+            "ssim.cu", "alpha_chain.cuh"} <= set(code)
     for f, src in code.items():
         assert not _float_atomics(src), (f, _float_atomics(src))
     for f in ("forward.cu", "backward.cu"):
@@ -218,8 +218,8 @@ def test_kernels_use_no_atomics_and_wrappers_do_not_fall_back():
         assert "eval_alpha(" in code[f] and "expf" not in code[f], f
     from saro_gs_torch.ops import tile_kernels
     assert set(tile_kernels.launches) == {"expand", "forward", "backward",
-                                          "grid_scatter"}
-    for name in ("tile_kernels.py", "grid_scatter.py"):
+                                          "grid_scatter", "ssim"}
+    for name in ("tile_kernels.py", "grid_scatter.py", "ssim.py"):
         with open(os.path.join(PKG, "ops", name)) as fh:
             src = fh.read()
         assert "except" not in src, name

@@ -1,8 +1,8 @@
 """The port's marks, spans and counters (saro_gs_torch/timing.py) on the
 CPU: nothing is made while nothing records; spans nest with their parent,
 unit and view, across threads; the profiler sees the ``saro/`` ranges in
-order; the ``instances`` counter; the same outputs with recording on and
-off; the stage names the marks had."""
+order; the ``instances`` and ``ssim`` counters; the same outputs with
+recording on and off; the stage names the marks had."""
 import threading
 
 import pytest
@@ -178,6 +178,17 @@ def test_instances_counter_is_the_sum_of_num_instances(view, tin):
                 rcfg=st.rcfg).out.num_instances
     assert want > 0
     assert train.counters["instances"] == m["instances"] == want
+
+
+def test_ssim_counter_is_the_batch(view, tin):
+    """The loss's SSIM runs once a view, through ops/ssim.py; a render
+    computes none."""
+    with timing.record() as rec:
+        view()
+        step(tin)
+    frame, train = rec.units()
+    assert "ssim" not in frame.counters
+    assert train.counters["ssim"] == tin.gt.shape[0] == 2
 
 
 def test_outputs_equal_with_recording_on_and_off(view, tin):
