@@ -41,6 +41,7 @@ KERNELS = {
     "K3": ("backward_kernel",),
     "K4": ("taps_kernel", "count_kernel", "scan_kernel", "scatter_kernel",
            "bounds_kernel", "piece_kernel", "combine_kernel"),
+    "K5": ("ssim_fwd_kernel", "ssim_mean_kernel", "ssim_bwd_kernel"),
 }
 
 
@@ -77,3 +78,12 @@ def ssim_flops(width: int, height: int) -> int:
     11-tap passes of a multiply and an add, and the map's 18 operations a
     pixel."""
     return (5 * 2 * 11 * 2 + 18) * 3 * width * height
+
+
+def k5(width: int, height: int) -> list:
+    """[(flops, bytes)] of one view's SSIM forward and of its backward:
+    forward ``ssim_flops`` with both images read; backward both images read
+    and d img1 written (the work the function needs: no intermediate
+    terms)."""
+    image = 3 * width * height * 4
+    return [(ssim_flops(width, height), 2 * image), (0, 3 * image)]

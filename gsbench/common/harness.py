@@ -50,13 +50,14 @@ def run(bench: dict, cell_name: str, seed: int, seconds: float,
     drv.setup()
     setup_s = time.perf_counter() - started
     w = drv.window(seconds)
+    # the peak of set-up and the window, before the traced segments
+    dinfo = device_info(dev, int(cell["chips"]))
     values = drv.end_to_end(w)
     values["setup_s"] = setup_s
     out = {"attempted": w.attempted, "failed": w.failed}
     if traced:
         units = int(tr["trace_units"])
         stages, record = drv.traced(units)
-        dinfo = device_info(dev, int(cell["chips"]))
         ctx = SimpleNamespace(
             cell=cell, cfg=cfg, traffic=tr, stages=stages, units=units,
             trace=record, counts=drv.counts(),
@@ -72,7 +73,6 @@ def run(bench: dict, cell_name: str, seed: int, seconds: float,
         out["breakdown"] = {"device_ops": trace.device_ops(record),
                             "idle_gaps": trace.idle_gaps(record)}
     else:
-        dinfo = device_info(dev, int(cell["chips"]))
         metrics = {m["name"]: {"value": float(values[m["name"]]),
                                "unit": m["unit"]}
                    for m in registry.end_to_end(bench, cell_name)}

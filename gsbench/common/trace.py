@@ -11,6 +11,8 @@ the readers work alike on a recorded toy trace:
 """
 from __future__ import annotations
 
+from . import counts
+
 SEGMENT = "gsbench.segment"
 
 
@@ -60,13 +62,17 @@ def window_s(tr: dict) -> float:
 
 def device_ops(tr: dict, top: int = 10) -> list:
     """[[name, seconds], ...]: the operations that took the most device
-    time in the segment, summed by name."""
+    time in the segment, summed by name; the kernels of each of the port's
+    hand-written kernels (``counts.KERNELS``) summed under "<id>: <their
+    names>"."""
     lo, hi = tr["segment"]
+    label = {k: f"{kid}: " + "/".join(names)
+             for kid, names in counts.KERNELS.items() for k in names}
     tot = {}
     for name, a, b in tr["device"]:
         d = min(b, hi) - max(a, lo)
         if d > 0:
-            key = name[:80]
+            key = label.get(kernel_name(name), name)[:80]
             tot[key] = tot.get(key, 0.0) + d * 1e-6
     return sorted(([k, v] for k, v in tot.items()), key=lambda kv: -kv[1])[
         :top]

@@ -22,9 +22,10 @@ from gsbench.reference import step as ref_step
 class Runner(drive.Runner):
     """``train_step_core`` in the dynamic stage at the configuration's
     LRs and loss weights, Adam from zero moments: each step takes
-    ``batch`` (frame, camera) pairs of the capture drawn from the seed (the
-    first ``check_steps`` steps' frames all differ) and as many images of
-    a uint8 ground-truth pool made from the seed."""
+    ``batch`` distinct views of the capture drawn from the seed (the first
+    ``check_steps`` steps' views all differ; ``capture_views`` says what a
+    view is) and as many images of a uint8 ground-truth pool made from the
+    seed."""
 
     def setup(self):
         tr, dev = self.traffic, self.dev
@@ -33,24 +34,19 @@ class Runner(drive.Runner):
         g = scene.generator(self.seed + 1, dev)
         self.pool = scene.gt_pool(int(tr["gt_pool"]), inp.width,
                                   inp.height, g, dev)
-        count = len(inp.centers)
-        self.times = torch.arange(count, device=dev,
-                                  dtype=torch.float32) / (count - 1)
-        b, s = int(tr["batch"]), int(tr["schedule_steps"])
-        rng = np.random.default_rng(self.seed)
-        first = rng.permutation(count)[:b * int(tr["check_steps"])]
-        rest = np.stack([rng.choice(count, b, replace=False)
-                         for _ in range(s)])
-        frames = np.concatenate([first.reshape(-1, b), rest])
-        self.frames = torch.as_tensor(frames, device=dev)
-        self.pool_idx = torch.as_tensor(
-            rng.integers(int(tr["gt_pool"]), size=frames.shape), device=dev)
+        self.view_cam, self.view_time, probe = capture_views(
+            self.cfg, len(inp.centers), dev)
+        schedule, pool_idx = draw(len(self.view_cam), tr, self.seed)
+        self.schedule = torch.as_tensor(schedule, device=dev)
+        self.pool_idx = torch.as_tensor(pool_idx, device=dev)
+        cam_of = self.view_cam.tolist()
         with torch.no_grad():
             feat = port.gm.field_feat(p.params, p.nets, p.mcfg, p.fstatic)
             need = 0
-            for j in range(count):
+            for v in probe:
                 pkg = port.train_render(
-                    port.camera(inp.cams, j), self.times[j].reshape(1, 1),
+                    port.camera(inp.cams, cam_of[v]),
+                    self.view_time[v].reshape(1, 1),
                     p.params, p.nets, p.alive, p.mcfg, p.fstatic, inp.bg,
                     width=inp.width, height=inp.height, stage="dynamatic",
                     sh_degree=int(tr["sh_degree"]), rcfg=p.rcfg, feat=feat)
@@ -102,11 +98,13 @@ class Runner(drive.Runner):
         return dict(zip(tensors, vals))
 
     def views(self, s: int):
-        idx = self.frames[s % self.frames.shape[0]]
-        cams = port.camera(self.inp.cams, idx)
-        return (idx, cams,
-                self.pool[self.pool_idx[s % self.frames.shape[0]]],
-                self.times[idx].reshape(-1, 1, 1))
+        """Step ``s``'s views: (view indices, cameras, ground truth,
+        times)."""
+        k = s % self.schedule.shape[0]
+        v = self.schedule[k]
+        return (v, port.camera(self.inp.cams, self.view_cam[v]),
+                self.pool[self.pool_idx[k]],
+                self.view_time[v].reshape(-1, 1, 1))
 
     def step(self) -> dict:
         """The next step of the schedule; returns its metrics."""
@@ -148,25 +146,44 @@ class Runner(drive.Runner):
         return {"train_steps_per_s": w.attempted / w.seconds}
 
     def traced(self, units: int):
+        """The profiled steps keep the state each step starts from, for
+        ``counts``, without allocating inside the segments: each leaf is
+        copied into buffers allocated here, before them, from a memory pool
+        of their own (on the card), since buffers or held leaves that came
+        from the allocator's cached blocks would make the step allocate
+        anew."""
         self.traced_steps = []
+
+        def buffers():
+            return [{k: torch.empty_like(v)
+                     for k, v in port.leaves(self.state).items()}
+                    for _ in range(units)]
+        if self.dev.type == "cuda":
+            self.snap_pool = torch.cuda.MemPool()
+            with torch.cuda.use_mem_pool(self.snap_pool):
+                bufs = buffers()
+        else:
+            bufs = buffers()
 
         def one(profiled):
             if profiled:
-                snap = {k: v.detach().clone()
-                        for k, v in port.leaves(self.state).items()}
+                snap = bufs[len(self.traced_steps)]
+                with torch.no_grad():
+                    for k, v in port.leaves(self.state).items():
+                        snap[k].copy_(v)
                 self.traced_steps.append((self.s, snap))
             self.step()
         return self._traced(units, one)
 
     def counts(self) -> dict:
-        """K1's, K3's and K4's work in each traced step, and the step's
-        operations, counted on the reference's path from the state the
-        step started from."""
+        """K1's, K3's, K4's and K5's work in each traced step, and the
+        step's operations, counted on the reference's path from the state
+        the step started from."""
         sc = self.ref_scene()
         w, h, tile = sc.width, sc.height, sc.tile
         nt = -(-w // tile) * -(-h // tile)
         live = self.inp.live
-        k1, k3, k4, flops = [], [], [], []
+        k1, k3, k4, k5, flops = [], [], [], [], []
         for s, leaves in self.traced_steps:
             _, cams, gt, ts = self.views(s)
             feat = ref_step.feat_of(sc, leaves)
@@ -179,12 +196,14 @@ class Runner(drive.Runner):
                 k1.append(counts.k1(c["walked"], c["valid"], nt, w, h))
                 k3.append(counts.k3(c["replayed"], c["contributing"],
                                     c["valid"], nt, w, h))
+                k5.append(counts.k5(w, h))
                 f_pairs += k1[-1][0] + k3[-1][0]
             planes = self.plane_work(live)
             k4.append(planes)
             flops.append(self.step_flops(live, int(gt.shape[0]), f_pairs,
                                          planes))
-        return {"k1": k1, "k3": k3, "k4": k4, "flops_per_unit": flops}
+        return {"k1": k1, "k3": k3, "k4": k4, "k5": k5,
+                "flops_per_unit": flops}
 
     def plane_work(self, rows: int) -> list:
         """(flops, bytes) of K4 on each plane for ``rows`` live rows."""
@@ -222,6 +241,8 @@ class Runner(drive.Runner):
 
     def release(self):
         del self.port, self.state, self.st
+        self.traced_steps = []
+        self.snap_pool = None
         if self.dev.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -288,6 +309,51 @@ class Runner(drive.Runner):
         place."""
         return self._compare(self._ref_numbers(True),
                              self._ref_numbers(False))
+
+
+def capture_views(cfg: dict, count: int, device):
+    """The training views of the configuration's capture of ``count``
+    cameras: each view's camera and time, and the views the capacity probe
+    renders.
+
+      * ``hemisphere`` (a D-NeRF capture): one pose a frame; view j is
+        camera j at time j / (count - 1); the probe renders every view;
+      * ``arc`` (a DyNeRF rig): every camera films each of the
+        configuration's ``duration`` frames; view v is camera v % count at
+        frame f = v // count, time f / duration (the Neural3D reader's
+        stamps); the probe renders every camera at the first, middle and
+        last frame.
+
+    -> (cameras [n] int64 and times [n] float32 on ``device``, the probe's
+    views as a list)."""
+    layout = cfg["bench"]["cameras"]["layout"]
+    if layout == "hemisphere":
+        cam = torch.arange(count, device=device)
+        times = torch.arange(count, device=device,
+                             dtype=torch.float32) / (count - 1)
+        return cam, times, list(range(count))
+    if layout == "arc":
+        d = int(cfg["duration"])
+        v = torch.arange(count * d, device=device)
+        times = (v // count).to(torch.float32) / d
+        probe = [f * count + c for f in (0, d // 2, d - 1)
+                 for c in range(count)]
+        return v % count, times, probe
+    raise ValueError(f"camera layout {layout!r}")
+
+
+def draw(n_views: int, traffic: dict, seed: int):
+    """The schedule from the seed: ``check_steps`` steps whose views all
+    differ, then ``schedule_steps`` steps of ``batch`` distinct views each,
+    out of ``n_views``; and each view's image of the ground-truth pool.
+    -> (views, pool indices), int64 arrays [steps, batch]."""
+    b = int(traffic["batch"])
+    rng = np.random.default_rng(seed)
+    first = rng.permutation(n_views)[:b * int(traffic["check_steps"])]
+    rest = np.stack([rng.choice(n_views, b, replace=False)
+                     for _ in range(int(traffic["schedule_steps"]))])
+    views = np.concatenate([first.reshape(-1, b), rest])
+    return views, rng.integers(int(traffic["gt_pool"]), size=views.shape)
 
 
 def gap(prog: dict, ref: dict, names: list) -> float:

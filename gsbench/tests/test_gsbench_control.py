@@ -10,7 +10,8 @@ import torch
 from gsbench.common import harness
 from gsbench.tests import toy
 
-CELLS = ("n3d_flame_steak.view_sweep", "dnerf_standup.train_b4")
+CELLS = ("n3d_flame_steak.view_sweep", "dnerf_standup.train_b4",
+         "n3d_flame_steak.train_b4")
 
 
 @pytest.mark.cuda

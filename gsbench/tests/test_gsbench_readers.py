@@ -10,6 +10,9 @@ from gsbench.common import counts, registry, trace
 REC = {"segment": [0.0, 1000.0],
        "device": [["forward_kernel(int const*, int)", 100.0, 300.0],
                   ["backward_kernel(int const*)", 250.0, 400.0],
+                  # K5's kernels, inside other kernels' intervals
+                  ["ssim_fwd_kernel(float const*)", 120.0, 170.0],
+                  ["ssim_bwd_kernel(float const*)", 620.0, 660.0],
                   ["scatter_kernel(int const*)", 600.0, 700.0],
                   ["taps_kernel(float const*)", 700.0, 750.0],
                   ["void at::native::elementwise_kernel<4>()", 900.0,
@@ -31,6 +34,7 @@ def ctx(**kw):
                         "k1": [(1e6, 1e3), (3e6, 1e3)],
                         "k3": [(2e6, 1e3)],
                         "k4": [[(0.0, 3.35e6)]],
+                        "k5": [[(6.7e6, 0.0), (0.0, 3.35e6)]],
                         "flops_per_unit": [6.7e9, 6.7e9]},
                 window={"units": 100, "seconds": 10.0,
                         "latencies": LAT})
@@ -47,9 +51,17 @@ def test_trace_arithmetic():
                        pytest.approx(200e-6)]
     assert gaps[1] == ["train_step", pytest.approx(150e-6)]
     assert len(gaps) == 4
-    assert trace.device_ops(REC)[0][0].startswith("forward_kernel")
+    assert trace.device_ops(REC)[0][0] == "K1: forward_kernel"
     assert trace.kernel_s(REC, counts.KERNELS["K4"]) == pytest.approx(
         150e-6)
+    # the port's kernels summed under their kernel's id
+    ops = dict(trace.device_ops(REC))
+    assert ops["K1: forward_kernel"] == pytest.approx(200e-6)
+    assert ops[("K4: " + "/".join(counts.KERNELS["K4"]))[:80]] == \
+        pytest.approx(150e-6)
+    assert ops[("K5: " + "/".join(counts.KERNELS["K5"]))[:80]] == \
+        pytest.approx(90e-6)
+    assert len(ops) == 5
 
 
 EXPECT = {
@@ -64,6 +76,8 @@ EXPECT = {
     "preprocess_ms.train": 8.5, "loss_ms.train": 1.5, "adam_ms.train": 0.25,
     "k3_roofline.train": 100 * (2e6 / counts.PEAK_F32) / 150e-6,
     "k4_roofline.train": 100 * (3.35e6 / counts.PEAK_BYTES) / 150e-6,
+    "k5_roofline.train": 100 * (6.7e6 / counts.PEAK_F32
+                                + 3.35e6 / counts.PEAK_BYTES) / 90e-6,
     "busy_ms.render": 0.25, "busy_ms.train": 0.25,
     "frame_ms_p95.host": 1e3 * statistics.quantiles(
         LAT, n=100, method="exclusive")[94],

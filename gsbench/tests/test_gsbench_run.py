@@ -12,9 +12,11 @@ from gsbench import run
 from gsbench.common import registry
 from gsbench.tests import toy
 
-CELLS = ("n3d_flame_steak.view_sweep", "dnerf_standup.train_b4")
+CELLS = ("n3d_flame_steak.view_sweep", "dnerf_standup.train_b4",
+         "n3d_flame_steak.train_b4")
 FAULTS = {"n3d_flame_steak.view_sweep": ("alter",),
-          "dnerf_standup.train_b4": ("unchanged", "half_batch")}
+          "dnerf_standup.train_b4": ("unchanged", "half_batch"),
+          "n3d_flame_steak.train_b4": ("unchanged", "half_batch")}
 
 
 def test_no_card_no_result():

@@ -93,11 +93,19 @@ def _ctx(cell, rec):
                            trace=VIEW_TRACE if cell == VIEW else TRAIN_TRACE)
 
 
+def _entry(bench, cell):
+    return registry.traffic(registry.cell(bench, cell)["traffic"])["entry"]
+
+
 @pytest.mark.parametrize("name", sorted(EXPECT))
 def test_span_reader(name, monkeypatch):
     cell, want = EXPECT[name]
-    entry = {m["name"]: m for m in registry.load()["per_layer"]}[name]
-    assert entry["workloads"] == [cell]
+    bench = registry.load()
+    entry = {m["name"]: m for m in bench["per_layer"]}[name]
+    # the cells it lists all drive the entry point its data stands for
+    assert cell in entry["workloads"]
+    assert {_entry(bench, w) for w in entry["workloads"]} == {
+        _entry(bench, cell)}
     rec = _frames() if cell == VIEW else _steps()
     monkeypatch.setattr(timing, "_last", rec)
     assert registry.reader(name)(_ctx(cell, rec)) == pytest.approx(want)
